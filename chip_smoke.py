@@ -5,19 +5,35 @@
 
 Phases, each of which raises on a fault (nothing is caught):
   1. device  — card name, count, nvidia-smi name and power limit
-  2. build   — nvcc builds csrc/composite_fwd.cu (seconds, ptxas report)
-  3. kernel  — composite_fwd against composite_fwd_plain on the card at
-               the bench workload (100k Gaussians, SH 3, 256x256, K=384,
-               M=10, bbox 12, two-tier 4/0.15): once without a depth
-               limit, once with a random one over a 2-camera batch
-  4. main    — rasterize(impl="tiled") at that width through the kernel:
-               zero truncation, finite, >= 60 dB against the lossless
-               K=5120 render, a small scene against the CPU reference
+  2. build   — nvcc builds csrc/composite_fwd.cu and csrc/composite_bwd.cu,
+               one process each, together (seconds, ptxas report)
+  3. kernel  — each kernel against its plain version on the card at the
+               bench workload (100k Gaussians, SH 3, 256x256, K=384,
+               M=10, bbox 12, two-tier 4/0.15): without a depth limit,
+               with a random one over a 2-camera batch, and (backward)
+               with absgrad; the backward on the forward kernel's
+               residuals, with the count of pixels whose weight gate a
+               linear T (the forward's) and a log T (the backward's)
+               decide differently
+  4. main    — rasterize(impl="tiled") at that width through the forward
+               kernel: zero truncation, finite, >= 60 dB against the
+               lossless K=5120 render, a small scene against the CPU
+               reference; then the training main path: Trainer steps
+               at that width (zero target, L1+SSIM, per-group Adam) with
+               one launch of each kernel per step, zero truncation and a
+               finite loss, and a small scene's per-Gaussian gradients
+               on the card against the CPU path (plain versions)
   5. entry   — the render CLI on a saved .ply: two 640x480 orbit PNGs;
-               then the kernel against its plain version on those two
-               orbit views' bins (default RenderConfig, K=1024, 40x30 tiles)
-  6. times   — kernel, plain version and full render (CUDA events), and
-               the kernel's bound from this run's shapes and counts
+               each kernel against its plain version on those two orbit
+               views' bins (default RenderConfig, K=1024, 40x30 tiles);
+               then cli.train --synthetic 20000 --iterations 600 (24
+               cameras, 256x256, one densify round and a pool resize at
+               step 500): PSNR rises, scene.ply renders through the CLI
+  6. times   — kernels, plain versions (CUDA events) and their bounds
+               from this run's shapes and counts; the render and the
+               train step (CUDA events and host wall), the train step's
+               device idle share and top kernels (profiler), and its
+               Gaussians/s (bench.py's metric, here on the card)
 The line before the last lists the kernels; the last line is the result.
 Exits non-zero without a CUDA device.
 """
@@ -46,7 +62,18 @@ FLOPS_EVAL_DLIM = 1
 FLOPS_KEPT = 5
 # each kept pair that passes the weight gate: alpha * T, 8 channel FMAs
 FLOPS_WEIGHTED = 17
+# the backward, per pair: each evaluated pair the forward's alpha test
+# (FLOPS_EVAL); each kept pair log1p, the log-T step, exp, 1 - alpha,
+# the gate (2) and the suffix term suffix / (1 - alpha) (2)
+BWD_FLOPS_KEPT = 8
+# each weighted pair: gamma (8 FMAs, 16), w and gamma * T and dL/dalpha
+# (6), dq and the suffix update (4), the screen terms a dx + b dy and
+# c dy + b dx (8), the 6 geometry products (10), the 8 dfeat products
+# (8), and the 14 sums over the tile's pixels (14)
+BWD_FLOPS_WEIGHTED = 66
 BK = 128
+N_GAUSSIANS = 100_000
+N_TRAIN_STEPS = 20
 
 
 def log(msg: str) -> None:
@@ -81,6 +108,59 @@ def compare_fwd(got, want, tag):
     if db < 60.0 or frac > 1e-4 or lt_err > 1e-3:
         raise AssertionError(f"{tag}: kernel disagrees with the plain version")
     return max_err, flips
+
+
+def compare_bwd(got, want, tag):
+    """Per row: at most 1e-4 of the slots off by more than 1e-4 + 1e-3
+    |plain|. Returns the max |err| over both outputs."""
+    import torch
+    max_err, worst = 0.0, 0.0
+    for name, a, b in zip(("dgeom", "dfeat"), got, want):
+        if not bool(torch.isfinite(a).all()):
+            raise AssertionError(f"{tag}: non-finite {name}")
+        err = (a - b).abs()
+        off = (err > 1e-4 + 1e-3 * b.abs()).float().mean(dim=(0, 2))
+        worst = max(worst, float(off.max()))
+        max_err = max(max_err, float(err.max()))
+        log(f"  {tag} {name}: max|err| per row "
+            + " ".join(f"{float(e):.2e}" for e in err.amax(dim=(0, 2)))
+            + f" (max|plain| {float(b.abs().max()):.3g}); slots off per row "
+            + " ".join(f"{float(o):.1e}" for o in off))
+    if worst > 1e-4:
+        raise AssertionError(f"{tag}: backward kernel disagrees with the "
+                             f"plain version ({worst:.2e} of a row's slots)")
+    return max_err
+
+
+def gate_flips(geom, counts, nblk, dlim, tiles_x, cfg, n_tiles_per_image=0):
+    """Pixels whose weight gate T (1 - alpha) >= 1e-4 a linear T (a
+    running product, as the forward kernel keeps it) and a log T (a
+    running sum of log1p(-alpha), as the backward rebuilds it) decide
+    differently on some kept splat of the processed blocks — computed
+    in torch, so it estimates, and does not read, the kernels' gates."""
+    import torch
+    from robosimgs_tpu_torch.render.gathered import (tile_alpha,
+                                                     tile_pixel_coords)
+    T, _, K = geom.shape
+    slots = torch.minimum(nblk.long() * BK, counts.long().clamp(0, K))
+    t_img = torch.arange(T, device=geom.device) % (n_tiles_per_image or T)
+    flips = 0
+    for s in range(0, T, 64):
+        e = min(s + 64, T)
+        px, py = tile_pixel_coords(t_img[s:e], tiles_x, cfg.tile_size)
+        in_count = (torch.arange(K, device=geom.device)[None, :]
+                    < slots[s:e, None])
+        alpha = tile_alpha(geom[s:e], px, py, in_count, cfg,
+                           None if dlim is None else dlim[s:e, :, 0])
+        om = 1.0 - alpha
+        t_lin = torch.cumprod(om, dim=2) / om
+        lg = torch.log1p(-alpha)
+        t_log = torch.exp(torch.cumsum(lg, dim=2) - lg)
+        kept = alpha > 0
+        lin = t_lin * om >= cfg.transmittance_min
+        lgt = t_log * om >= cfg.transmittance_min
+        flips += int((kept & (lin != lgt)).any(dim=2).sum())
+    return flips
 
 
 def pair_work(geom, counts, nblk, dlim, tiles_x, cfg):
@@ -151,16 +231,26 @@ def main() -> int:
               file=sys.stderr)
         return 1
 
+    import numpy as np
+
     from robosimgs_tpu_torch import Camera, Gaussians
     from robosimgs_tpu_torch.cli import render as cli_render
     from robosimgs_tpu_torch.render import _build, rasterize
     from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
     from robosimgs_tpu_torch.render.config import RenderConfig
-    from robosimgs_tpu_torch.render.kernels import (composite_fwd,
+    from robosimgs_tpu_torch.cli import train as cli_train
+    from robosimgs_tpu_torch.render.kernels import (composite_bwd,
+                                                    composite_bwd_plain,
+                                                    composite_fwd,
                                                     composite_fwd_plain)
     from robosimgs_tpu_torch.render.project import project
+    from robosimgs_tpu_torch.render.tiled import composite_tiled
     from robosimgs_tpu_torch.render.tiles import num_tiles
+    from robosimgs_tpu_torch.train.data import Frame
     from robosimgs_tpu_torch.train.io_ply import load_ply, save_ply
+    from robosimgs_tpu_torch.train.losses import photometric_loss
+    from robosimgs_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                   make_train_step)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -176,17 +266,20 @@ def main() -> int:
         f"cuda {torch.version.cuda}")
     log(smi)   # the card's name and power limit, as nvidia-smi gives them
 
-    # 2. build
-    built = _build.build("composite_fwd")
-    log(f"[2 build] composite_fwd: {built.seconds:.1f} s "
-        f"{'(already built)' if not built.ptxas else built.ptxas}")
+    # 2. build: one nvcc per source, started together
+    t_build = time.perf_counter()
+    for name, built in _build.build_all(["composite_fwd",
+                                         "composite_bwd"]).items():
+        log(f"[2 build] {name}: {built.seconds:.1f} s "
+            f"{'(already built)' if not built.ptxas else built.ptxas}")
+    log(f"  both built in {time.perf_counter() - t_build:.1f} s")
 
     # 3. kernel against plain on the card, bench workload
     res = 256
     cfg = RenderConfig(tile_capacity=384, max_tiles_per_gaussian=10,
                        bbox_tiles_per_gaussian=12, two_tier_split=4,
                        two_tier_spill_frac=0.15)
-    g = Gaussians.random(torch.Generator().manual_seed(0), 100_000,
+    g = Gaussians.random(torch.Generator().manual_seed(0), N_GAUSSIANS,
                          sh_degree=3, extent=1.5, device=dev)
     cam = Camera.look_at([4.0, 0.5, 1.2], [0, 0, 0], [0, 0, 1], 60.0,
                          res, res, device=dev)
@@ -222,6 +315,49 @@ def main() -> int:
         got_b, composite_fwd_plain(geom_b, feat_b, counts_b, dlim, **kw_b),
         "dlim + 2 images")
     log(f"  gate flips: {flips_a} + {flips_b} pixels")
+
+    # 3b. the backward kernel against its plain version, on the forward
+    # kernel's residuals; cotangent N(0, 1) on all 8 rows
+    def gout_like(out, seed):
+        return torch.randn(out.shape, generator=torch.Generator()
+                           .manual_seed(seed)).to(dev)
+
+    gout = gout_like(fwd[0], 3)
+    bwd = composite_bwd(geom, feat, counts, None, gout, fwd[1], fwd[2], **kw)
+    torch.cuda.synchronize()
+    err_bwd = compare_bwd(bwd, composite_bwd_plain(
+        geom, feat, counts, None, gout, fwd[1], fwd[2], **kw), "bwd no dlim")
+    gout_b = gout_like(got_b[0], 4)
+    got_bb = composite_bwd(geom_b, feat_b, counts_b, dlim, gout_b, got_b[1],
+                           got_b[2], **kw_b)
+    torch.cuda.synchronize()
+    err_bwd = max(err_bwd, compare_bwd(got_bb, composite_bwd_plain(
+        geom_b, feat_b, counts_b, dlim, gout_b, got_b[1], got_b[2], **kw_b),
+        "bwd dlim + 2 images"))
+    cfg_abs = RenderConfig(**{**cfg.__dict__, "absgrad": True})
+    with torch.no_grad():
+        geom_a, feat_a, counts_a, _ = bin_and_gather_packed(
+            project(g, cam, cfg_abs,
+                    abs_probe=torch.zeros((g.capacity, 2), device=dev)),
+            res, res, cfg_abs)
+    kw_a = dict(tiles_x=tiles_x, cfg=cfg_abs, has_dlim=False)
+    fwd_a = composite_fwd(geom_a, feat_a, counts_a, None, **kw_a)
+    gout_a = gout_like(fwd_a[0], 5)
+    got_ba = composite_bwd(geom_a, feat_a, counts_a, None, gout_a, fwd_a[1],
+                           fwd_a[2], **kw_a)
+    torch.cuda.synchronize()
+    err_bwd = max(err_bwd, compare_bwd(got_ba, composite_bwd_plain(
+        geom_a, feat_a, counts_a, None, gout_a, fwd_a[1], fwd_a[2], **kw_a),
+        "bwd absgrad"))
+    if float(got_ba[0][:, 7].max()) <= 0.0:
+        raise AssertionError("absgrad rows are empty")
+    with torch.no_grad():
+        gflip_a = gate_flips(geom, counts, fwd[2], None, tiles_x, cfg)
+        gflip_b = gate_flips(geom_b, counts_b, got_b[2], dlim, tiles_x, cfg,
+                             T2 // 2)
+    log(f"  forward/backward gate disagreements (linear vs log T, torch "
+        f"estimate): {gflip_a} of {geom.shape[0] * P} pixels, {gflip_b} of "
+        f"{T2 * P} with dlim")
 
     # 4. main path: rasterize through the kernel
     if trunc != 0:
@@ -263,6 +399,59 @@ def main() -> int:
     if ref_err > 2e-3:
         raise AssertionError("tiled render disagrees with the reference")
 
+    # 4b. the training main path: Trainer steps at the bench width
+    target = np.zeros((res, res, 3), np.float32)
+    cfg_train = TrainConfig(render=cfg, impl="tiled", sh_warmup_every=1,
+                            densify_from=10**9, opacity_reset_interval=10**9,
+                            dynamic_pool=False, log_every=1)
+    trainer = Trainer(cfg_train, g, [Frame(camera=cam, image=target)])
+    composite_fwd.launches = composite_bwd.launches = 0
+    trainer.run(iterations=3, progress=False)
+    torch.cuda.synchronize()
+    launches_train = (composite_fwd.launches, composite_bwd.launches)
+    losses = [h["loss"] for h in trainer.history]
+    log(f"[4 main] Trainer 3 steps at {res}x{res}: launches fwd "
+        f"{launches_train[0]} bwd {launches_train[1]}, loss "
+        + " ".join(f"{x:.6f}" for x in losses)
+        + f", overflow {[h['overflow'] for h in trainer.history]}")
+    if launches_train != (3, 3):
+        raise AssertionError(f"train steps launched {launches_train}, want "
+                             f"one forward and one backward per step")
+    # the step's overflow metric also counts tiles past K=384, which the
+    # bench accepts under its 60 dB gate; truncated Gaussians it does not
+    with torch.no_grad():
+        *_, st_train = bin_and_gather_packed(
+            project(trainer.state.gaussians, cam, cfg), res, res, cfg)
+    trunc_train = int(st_train.truncated_gaussians)
+    log(f"  after the steps: truncated {trunc_train}, overflowed tiles "
+        f"{int(st_train.overflowed_tiles)}")
+    if trunc_train != 0:
+        raise AssertionError("the train step truncates")
+    if not all(np.isfinite(losses)):
+        raise AssertionError("non-finite loss")
+    # per-Gaussian gradients on a small scene: card against CPU path;
+    # anisotropic splats (an isotropic one's rotation has no gradient)
+    aniso = small.replace(log_scales=small.log_scales + 0.5 * torch.randn(
+        small.log_scales.shape, generator=torch.Generator().manual_seed(6)
+    ).to(dev))
+    grads = {}
+    for d in ("cpu", "cuda"):
+        gg = aniso.to(d)
+        params = {k: getattr(gg, k).clone().requires_grad_()
+                  for k in ("means", "quats", "log_scales", "logit_opacities",
+                            "sh_dc", "sh_rest")}
+        out_g = composite_tiled(project(gg.replace(**params), cam_s.to(d),
+                                        cfg_s), 64, 48, cfg_s)
+        photometric_loss(out_g["rgb"], torch.full((48, 64, 3), 0.3,
+                                                  device=d)).backward()
+        grads[d] = {k: v.grad.cpu() for k, v in params.items()}
+    for k, want_g in grads["cpu"].items():
+        e = float((grads["cuda"][k] - want_g).abs().max())
+        scale = float(want_g.abs().max())
+        log(f"  grad {k}: max|card - cpu| {e:.3e} of max {scale:.3e}")
+        if e > 1e-3 * scale:
+            raise AssertionError(f"{k} gradients differ on the card")
+
     # 5. entry point: the render CLI
     with tempfile.TemporaryDirectory() as tmp:
         ply = os.path.join(tmp, "scene.ply")
@@ -300,6 +489,50 @@ def main() -> int:
         e_o, _ = compare_fwd(got_o, composite_fwd_plain(
             geom_o, feat_o, counts_o, None, **kw_o), f"orbit {i} 640x480")
         err_cli = max(err_cli, e_o)
+        gout_o = gout_like(got_o[0], 10 + i)
+        bwd_o = composite_bwd(geom_o, feat_o, counts_o, None, gout_o,
+                              got_o[1], got_o[2], **kw_o)
+        torch.cuda.synchronize()
+        err_bwd = max(err_bwd, compare_bwd(bwd_o, composite_bwd_plain(
+            geom_o, feat_o, counts_o, None, gout_o, got_o[1], got_o[2],
+            **kw_o), f"bwd orbit {i} 640x480"))
+        with torch.no_grad():
+            flips_o = gate_flips(geom_o, counts_o, got_o[2], None, tx, cfg_cli)
+        log(f"  orbit {i}: forward/backward gate disagreements {flips_o}")
+
+    # the train CLI: one densify round and a pool resize at step 500
+    with tempfile.TemporaryDirectory() as tmp:
+        composite_fwd.launches = composite_bwd.launches = 0
+        t_cli = time.perf_counter()
+        cli_train.main(["--synthetic", "20000", "--iterations", "600",
+                        "--output", tmp])
+        cli_s = time.perf_counter() - t_cli
+        launches_cli_train = (composite_fwd.launches, composite_bwd.launches)
+        with open(os.path.join(tmp, "train_summary.json")) as fh:
+            summary = json.load(fh)
+        hist = summary["history"]
+        log(f"[5 entry] cli.train --synthetic 20000 --iterations 600: "
+            f"{cli_s:.1f} s, launches fwd {launches_cli_train[0]} bwd "
+            f"{launches_cli_train[1]}, psnr by log step "
+            + " ".join(f"{h['step']}:{h['psnr']:.2f}" for h in hist)
+            + f", alive {hist[0]['n_alive']:.0f} -> {summary['n_alive']}, "
+            f"eval psnr {summary['psnr']:.2f} ssim {summary['ssim']:.4f}")
+        if launches_cli_train[1] != 600:
+            raise AssertionError("the train CLI did not run its 600 steps "
+                                 "through the backward kernel")
+        if not hist[-1]["psnr"] > hist[0]["psnr"]:
+            raise AssertionError("cli.train did not raise PSNR")
+        ply_t = os.path.join(tmp, "scene.ply")
+        view_t = os.path.join(tmp, "trained.png")
+        composite_fwd.launches = 0
+        cli_render.main([ply_t, "--output", view_t, "--eye", "4", "0", "1",
+                         "--width", "256", "--height", "256"])
+        img = read_png_rgb(view_t)
+        if img.shape != (256, 256, 3) or int(img.std() * 1000) == 0 \
+                or composite_fwd.launches != 1:
+            raise AssertionError("the trained scene did not render")
+        log(f"  cli.render of the trained scene.ply: 256x256 PNG, std "
+            f"{img.std():.1f}")
 
     # 6. times at the bench shape
     with torch.no_grad():
@@ -309,6 +542,11 @@ def main() -> int:
                                                        None, **kw), reps=20)
         render_ms = time_ms(lambda: rasterize(g, cam, cfg, impl="tiled"),
                             reps=50)
+    with torch.no_grad():
+        bwd_ms = time_ms(lambda: composite_bwd(geom, feat, counts, None, gout,
+                                               fwd[1], fwd[2], **kw), reps=200)
+        bwd_plain_ms = time_ms(lambda: composite_bwd_plain(
+            geom, feat, counts, None, gout, fwd[1], fwd[2], **kw), reps=10)
     nblk = fwd[2]
     with torch.no_grad():
         pairs, kept, weighted = pair_work(geom, counts, nblk, None, tiles_x,
@@ -331,6 +569,23 @@ def main() -> int:
         f"{weighted} weighted x {FLOPS_WEIGHTED}, {ops_ms:.6f} ms; {nbytes} B,"
         f" {bytes_ms:.6f} ms; blocks {int(nblk.sum())}), share "
         f"{bound_ms / kernel_ms:.4f} of the kernel's time; library call: none")
+    # the backward's bound: the same pairs; bytes: counts, nblk, geom
+    # rows 0..5 and feat rows 0..7 of the evaluated slots, gout (8 rows),
+    # log-T, and dgeom + dfeat (16 rows) of every slot
+    K = geom.shape[2]
+    bwd_flops = (FLOPS_EVAL * pairs + BWD_FLOPS_KEPT * kept
+                 + BWD_FLOPS_WEIGHTED * weighted)
+    bwd_bytes = 4 * (2 * T + 14 * n_slots + 8 * T * P + T * P + 16 * T * K)
+    bwd_ops_ms = bwd_flops / PEAK_FP32_FLOPS * 1e3
+    bwd_bytes_ms = bwd_bytes / PEAK_BYTES_PER_S * 1e3
+    bwd_bound_ms = max(bwd_ops_ms, bwd_bytes_ms)
+    bwd_bound_by = "operations" if bwd_ops_ms >= bwd_bytes_ms else "bytes"
+    log(f"  composite_bwd {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms; bound "
+        f"{bwd_bound_ms:.6f} ms ({bwd_bound_by}: {bwd_flops} flop = {pairs} "
+        f"evaluated x {FLOPS_EVAL} + {kept} kept x {BWD_FLOPS_KEPT} + "
+        f"{weighted} weighted x {BWD_FLOPS_WEIGHTED}, {bwd_ops_ms:.6f} ms; "
+        f"{bwd_bytes} B, {bwd_bytes_ms:.6f} ms), share "
+        f"{bwd_bound_ms / bwd_ms:.4f} of the kernel's time; library call: none")
     # where the render's time goes: stages by CUDA events, kernels by
     # the profiler, and the device's busy share of the host's wall time
     with torch.no_grad():
@@ -367,15 +622,59 @@ def main() -> int:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:10]:
         log(f"    {e.self_device_time_total / 1e3 / n_prof:8.4f} ms "
             f"x{e.count // n_prof:<3d} {e.key[:90]}")
+
+    # the train step at the bench width: the step function the Trainer
+    # runs, on the Trainer's state
+    step_fn, st = make_train_step(cfg_train, "tiled"), trainer.state
+    cam_t = cam
+    tgt = torch.zeros((res, res, 3), device=dev)
+
+    def train_step():
+        nonlocal st
+        st, _ = step_fn(st, cam_t, tgt)
+
+    step_ms = time_ms(train_step, reps=N_TRAIN_STEPS)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(N_TRAIN_STEPS):
+        train_step()
+    torch.cuda.synchronize()
+    step_wall_ms = (time.perf_counter() - t0) * 1e3 / N_TRAIN_STEPS
+    n_prof = 5
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n_prof):
+            train_step()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    step_dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / n_prof
+    n_kern = sum(e.count for e in events) // n_prof
+    log(f"  train step {res}x{res}: {step_ms:.4f} ms (CUDA events), host "
+        f"wall {step_wall_ms:.4f} ms, device busy {step_dev_ms:.4f} ms "
+        f"(profiler, {n_kern} kernels/step), idle share "
+        f"{1 - step_dev_ms / step_wall_ms:.3f}; "
+        f"{N_GAUSSIANS / (step_wall_ms / 1e3):.1f} gaussians/s fwd+bwd+Adam")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / 1e3 / n_prof:8.4f} ms "
+            f"x{e.count // n_prof:<4d} {e.key[:90]}")
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
         "source": "robosimgs_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "robosimgs_tpu/render/pallas_kernels.py:138",
-        "launches": launches_main, "max_abs_err": max(err_a, err_b, err_cli),
+        "launches": launches_train[0], "max_abs_err": max(err_a, err_b,
+                                                          err_cli),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}]}))
+        "bound_by": bound_by, "library_ms": None}, {
+        "name": "composite_bwd", "route": "cuda",
+        "source": "robosimgs_tpu_torch/csrc/composite_bwd.cu",
+        "replaces": "robosimgs_tpu/render/pallas_kernels.py:221",
+        "launches": launches_train[1], "max_abs_err": err_bwd,
+        "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
+        "bound_by": bwd_bound_by, "library_ms": None}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0

@@ -7,12 +7,24 @@ from robosimgs_tpu; the JAX package stays the reference its tests hold
 it against.
 
 Ported so far: the 3DGS render path (core/, render/, train/io_ply.py,
-cli/render.py), compositing through csrc/composite_fwd.cu.
+cli/render.py) and the 3DGS training step (train/, cli/train.py),
+compositing through csrc/composite_fwd.cu and its backward
+csrc/composite_bwd.cu.
 """
 
-__version__ = "0.1.0"
+import torch
 
-from robosimgs_tpu_torch.core.types import Gaussians
-from robosimgs_tpu_torch.core.camera import Camera
+# Numerics pinned once, for every module: full f32 matmuls and
+# convolutions on the card. The JAX package pins f32 wherever it matters
+# (render/project.py's unrolled f32 geometry, Precision.HIGHEST in the
+# compositors and the SSIM blur), and Camera.w2c is a matmul; TF32 keeps
+# ~3 digits.
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+
+__version__ = "0.2.0"
+
+from robosimgs_tpu_torch.core.types import Gaussians  # noqa: E402
+from robosimgs_tpu_torch.core.camera import Camera  # noqa: E402
 
 __all__ = ["Gaussians", "Camera", "__version__"]

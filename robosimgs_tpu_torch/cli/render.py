@@ -1,9 +1,9 @@
 """Render a trained 3DGS scene (.ply) from chosen viewpoints.
 
 Scenes trained by the JAX package or by any standard 3DGS stack
-(Nerfstudio/gsplat) render identically. Cameras come from an orbit or an
-explicit look-at; `--transforms` (a transforms.json) arrives with the
-training slice. Renders on the card unless `--device cpu` is given.
+(Nerfstudio/gsplat) render identically. Cameras come from a
+transforms.json (`--transforms`), an orbit or an explicit look-at.
+Renders on the card unless `--device cpu` is given.
 
     python -m robosimgs_tpu_torch.cli.render scene.ply --output views --orbit 8
 """
@@ -23,8 +23,7 @@ def build_parser():
     p.add_argument("scene", help=".ply in standard 3DGS layout")
     p.add_argument("--output", required=True, help="output dir or .png file")
     p.add_argument("--transforms", default=None,
-                   help="render the cameras of a transforms.json "
-                        "(not ported yet)")
+                   help="render the cameras of a transforms.json")
     p.add_argument("--orbit", type=int, default=0,
                    help="render N orbit views around the scene center")
     p.add_argument("--eye", type=float, nargs=3, default=None)
@@ -83,16 +82,20 @@ def main(argv=None):
     from robosimgs_tpu_torch.render.rasterize import rasterize
     from robosimgs_tpu_torch.train.io_ply import load_ply
 
-    if args.transforms:
-        raise SystemExit("--transforms needs train/data.py, which is not "
-                         "ported yet; use --orbit or --eye")
     g = load_ply(args.scene, device=args.device)
     print(f"loaded {args.scene}: {int(g.num_alive)} gaussians, "
           f"SH degree {g.sh_degree}, device {g.device}")
 
     cams = []
     names = []
-    if args.orbit:
+    if args.transforms:
+        from robosimgs_tpu_torch.train.data import parse_transforms_json
+
+        for i, f in enumerate(parse_transforms_json(args.transforms,
+                                                    device=args.device)):
+            cams.append(f.camera)
+            names.append(f"view_{i:04d}")
+    elif args.orbit:
         cams = orbit_cameras(g, args.orbit, args.fov, args.width, args.height,
                              device=args.device)
         names = [f"orbit_{i:04d}" for i in range(args.orbit)]
@@ -102,7 +105,7 @@ def main(argv=None):
                                    device=args.device))
         names.append("view")
     else:
-        raise SystemExit("one of --orbit / --eye required")
+        raise SystemExit("one of --transforms / --orbit / --eye required")
 
     bg = torch.tensor(args.background, dtype=torch.float32, device=args.device)
     single = len(cams) == 1 and not os.path.isdir(args.output) \

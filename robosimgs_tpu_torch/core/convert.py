@@ -1,9 +1,12 @@
-"""Carry scenes, cameras and projections across from the JAX package.
+"""Carry scenes, cameras, projections and training state across from
+the JAX package.
 
-Each function takes the fields of a JAX-side object as numpy arrays —
-what `jax.device_get` returns, as an object with those attributes or as
-a mapping — and builds the port's object on `device`. The parity tests
-build their inputs on the JAX side and hand them over through these.
+Each *_from_numpy function takes the fields of a JAX-side object as
+numpy arrays — what `jax.device_get` returns, as an object with those
+attributes or as a mapping — and builds the port's object on `device`.
+`to_numpy` goes the other way, for any of the port's objects. The parity
+tests build their inputs on the JAX side and hand them over through
+these, and compare the results through `to_numpy`.
 """
 
 from __future__ import annotations
@@ -17,6 +20,9 @@ import torch
 from robosimgs_tpu_torch.core.camera import Camera
 from robosimgs_tpu_torch.core.types import Gaussians
 from robosimgs_tpu_torch.render.project import Projected
+from robosimgs_tpu_torch.train.densify import DensifyState
+from robosimgs_tpu_torch.train.optim import FLOAT_FIELDS, AdamGroup, OptState
+from robosimgs_tpu_torch.train.trainer import TrainState
 
 
 def _get(d, name):
@@ -46,3 +52,58 @@ def projected_from_numpy(d, device) -> Projected:
         v = _get(d, f.name)
         fields[f.name] = None if v is None else _tensor(v, device)
     return Projected(**fields)
+
+
+def densify_state_from_numpy(d, device) -> DensifyState:
+    return DensifyState(**{f.name: _tensor(_get(d, f.name), device)
+                           for f in dataclasses.fields(DensifyState)})
+
+
+def opt_state_from_numpy(d, device) -> OptState:
+    """The port's per-group Adam state from the JAX package's optax
+    state: a MultiTransformState whose inner_states[label].inner_state
+    is (ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count) for
+    the scheduled means lr, or an empty state), mu and nu being dicts
+    over every field with the group's own array under its label."""
+    inner = _get(d, "inner_states")
+    state = {}
+    for label in FLOAT_FIELDS:
+        chain = _get(inner[label], "inner_state")
+        adam = chain[0]
+        # a NamedTuple's fields: an empty state is a tuple, whose
+        # tuple.count method is no field
+        sched = (chain[1].count if len(chain) > 1
+                 and "count" in getattr(chain[1], "_fields", ()) else None)
+        state[label] = AdamGroup(
+            mu=_tensor(_get(adam, "mu")[label], device),
+            nu=_tensor(_get(adam, "nu")[label], device),
+            count=_tensor(np.asarray(_get(adam, "count"), np.int32), device),
+            sched_count=None if sched is None
+            else _tensor(np.asarray(sched, np.int32), device))
+    return state
+
+
+def train_state_from_numpy(d, device, generator=None) -> TrainState:
+    """The JAX package's TrainState (gaussians, optax state, densify
+    state, step). Its PRNG key has no torch counterpart: the port's state
+    takes `generator` (default: a CPU generator seeded 0)."""
+    return TrainState(
+        gaussians=gaussians_from_numpy(_get(d, "gaussians"), device),
+        opt_state=opt_state_from_numpy(_get(d, "opt_state"), device),
+        densify_state=densify_state_from_numpy(_get(d, "densify_state"),
+                                               device),
+        step=int(_get(d, "step")),
+        generator=generator or torch.Generator().manual_seed(0))
+
+
+def to_numpy(x):
+    """Any of the port's objects as numpy: tensors as arrays, dataclasses
+    and dicts as dicts of their converted fields, anything else as is."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().cpu().numpy()
+    if dataclasses.is_dataclass(x) and not isinstance(x, type):
+        return {f.name: to_numpy(getattr(x, f.name))
+                for f in dataclasses.fields(x)}
+    if isinstance(x, Mapping):
+        return {k: to_numpy(v) for k, v in x.items()}
+    return x

@@ -14,6 +14,7 @@ matches the standard 3DGS export.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional
 
 import numpy as np
@@ -91,13 +92,10 @@ class Gaussians:
     ) -> "Gaussians":
         """Initialize from a point cloud (e.g. SfM points or mesh samples).
 
-        init_scale: per-point (or scalar) isotropic scale. It is required
-        until the port carries the KNN initializer (the mean distance to
-        the 3 nearest neighbours) that the JAX package takes by default.
+        Scales default to the log of the mean distance to the 3 nearest
+        neighbors (isotropic), the standard 3DGS initialization, computed
+        on `device` by `knn_mean_dist`.
         """
-        if init_scale is None:
-            raise ValueError("init_scale is required: the KNN scale "
-                             "initializer is not ported yet")
         points = np.asarray(points, np.float32)
         n = points.shape[0]
         cap = capacity or n
@@ -109,6 +107,9 @@ class Gaussians:
         means[:n] = points
         quats = np.zeros((cap, 4), np.float32)
         quats[:, 0] = 1.0
+        if init_scale is None:
+            init_scale = knn_mean_dist(torch.from_numpy(points).to(device),
+                                       k=3).cpu().numpy()
         init_scale = np.broadcast_to(
             np.asarray(init_scale, np.float32).reshape(-1, 1), (n, 3))
         log_scales = np.full((cap, 3), -5.0, np.float32)
@@ -157,6 +158,28 @@ class Gaussians:
 
 def _logit(p: float) -> float:
     return float(np.log(p / (1.0 - p)))
+
+
+def knn_mean_dist(points: torch.Tensor, k: int = 3) -> torch.Tensor:
+    """(n, 3) points -> (n,) mean distance to the k nearest other points,
+    clipped at 1e-7; 0.01 for a lone point. Exact (no matmul form of the
+    distances), in row chunks of at most 2^26 distances, on the points'
+    device. The JAX package's `_knn_mean_dist` in numpy."""
+    n = points.shape[0]
+    if n <= 1:
+        return torch.full((n,), 0.01, device=points.device)
+    kk = min(k, n - 1)
+    chunk = max(1, (1 << 26) // n)
+    out = []
+    for s in range(0, n, chunk):
+        e = min(s + chunk, n)
+        d = torch.cdist(points[s:e], points,
+                        compute_mode="donot_use_mm_for_euclid_dist")
+        rows = torch.arange(e - s, device=points.device)
+        d[rows, rows + s] = math.inf                           # not self
+        near = torch.topk(d, kk, dim=1, largest=False).values
+        out.append(torch.clamp_min(near, 1e-6).mean(1))
+    return torch.clamp_min(torch.cat(out), 1e-7)
 
 
 def rgb_to_sh(rgb):

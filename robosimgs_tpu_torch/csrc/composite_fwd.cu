@@ -21,7 +21,8 @@
 // T >= t_min (__syncthreads_or), nblk counts the batches processed, and
 // log_t_final sums log1p(-alpha) over EVERY kept splat of the processed
 // batches (not "log T at the stop point"), exact where linear T
-// underflows.
+// underflows. It is summed batch by batch (composite_common.cuh), the
+// grouping composite_bwd.cu takes back.
 //
 // Bound on this card: per evaluated (pixel, splat) pair about 20 FP32
 // operations plus two SFU calls (expf, log1pf), against 64 B of
@@ -36,11 +37,13 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "composite_common.cuh"
+
 namespace {
 
-constexpr int BK = 128;
-constexpr int GEOM_ROWS = 7;   // mx, my, conic a/b/c, opacity, depth
-constexpr int FEAT_ROWS = 8;
+using composite::BK;
+using composite::FEAT_ROWS;
+using composite::GEOM_ROWS;
 
 __global__ void composite_fwd_kernel(
     const float* __restrict__ geom, const float* __restrict__ feat,
@@ -88,24 +91,22 @@ __global__ void composite_fwd_kernel(
     }
     __syncthreads();
 
+    float s = 0.f;   // log-T sum of the batch
     for (int j = 0; j < n; ++j) {
-      const float dx = px - sg[0][j];
-      const float dy = py - sg[1][j];
-      const float q =
-          0.5f * (sg[2][j] * dx * dx + sg[4][j] * dy * dy) + sg[3][j] * dx * dy;
-      const float alpha = fminf(alpha_clamp, sg[5][j] * expf(-q));
-      const bool keep = alpha >= alpha_min && q >= 0.f &&
-                        (!has_dlim || sg[6][j] <= lim);
-      if (!keep) continue;  // alpha = 0: no weight, T and log-T unchanged
-      const float t_after = T * (1.f - alpha);
-      if (t_after >= t_min) {
-        const float w = alpha * T;
+      const composite::SplatAlpha a = composite::splat_alpha(
+          sg, j, px, py, has_dlim, lim, alpha_clamp, alpha_min);
+      if (a.keep) {  // else alpha = 0: no weight, T and log-T unchanged
+        const float t_after = T * (1.f - a.alpha);
+        if (t_after >= t_min) {
+          const float w = a.alpha * T;
 #pragma unroll
-        for (int c = 0; c < FEAT_ROWS; ++c) acc[c] += w * sf[c][j];
+          for (int c = 0; c < FEAT_ROWS; ++c) acc[c] += w * sf[c][j];
+        }
+        T = t_after;
+        s += log1pf(-a.alpha);
       }
-      T = t_after;
-      lt += log1pf(-alpha);
     }
+    lt += s;
     ++nb;
     live = __syncthreads_or(T >= t_min) != 0;
   }

@@ -1,13 +1,4 @@
-import torch
-
-# Numerics pinned once, for every render module: full f32 matmuls and
-# convolutions on the card. The JAX package pins f32 wherever it matters
-# (render/project.py's unrolled f32 geometry, Precision.HIGHEST in the
-# compositors), and Camera.w2c is a matmul; TF32 keeps ~3 digits.
-torch.backends.cuda.matmul.allow_tf32 = False
-torch.backends.cudnn.allow_tf32 = False
-
-from robosimgs_tpu_torch.render.config import RenderConfig  # noqa: E402
-from robosimgs_tpu_torch.render.rasterize import rasterize  # noqa: E402
+from robosimgs_tpu_torch.render.config import RenderConfig
+from robosimgs_tpu_torch.render.rasterize import rasterize
 
 __all__ = ["RenderConfig", "rasterize"]

@@ -49,27 +49,51 @@ def find_nvcc() -> str:
                        "to build the CUDA kernels")
 
 
+def _library(name: str) -> Path:
+    """Where csrc/<name>.cu's library goes: keyed by the source, the
+    headers it may include and the flags."""
+    key = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        key.update(header.read_bytes())
+    key.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
+
+
+def build_all(names) -> dict[str, Built]:
+    """Compile csrc/<name>.cu for each name whose library is not built
+    yet, one nvcc per source, all started together."""
+    out, jobs = {}, {}
+    for name in names:
+        so = _library(name)
+        if so.is_file():
+            out[name] = Built(so, 0.0, "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
+        cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        jobs[name] = (so, tmp, time.perf_counter(), subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
+    failed = []
+    for name, (so, tmp, t0, proc) in jobs.items():
+        stdout, stderr = proc.communicate()
+        seconds = time.perf_counter() - t0
+        if proc.returncode != 0:
+            failed.append(f"nvcc failed with code {proc.returncode} on "
+                          f"{name}.cu:\n{stdout}{stderr}")
+            continue
+        os.replace(tmp, so)   # atomic: a concurrent build never sees a partial file
+        ptxas = " | ".join(line.strip() for line in stderr.splitlines()
+                           if "ptxas" in line or "spill" in line)
+        print(f"built {so.name} in {seconds:.1f} s: {ptxas}", file=sys.stderr)
+        out[name] = Built(so, seconds, ptxas)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return out
+
+
 def build(name: str) -> Built:
     """Compile csrc/<name>.cu unless its library is already built."""
-    src = CSRC / f"{name}.cu"
-    key = hashlib.sha256(src.read_bytes() + " ".join(NVCC_FLAGS).encode())
-    so = BUILD_DIR / f"{name}-{key.hexdigest()[:16]}.so"
-    if so.is_file():
-        return Built(so, 0.0, "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = so.with_name(f"{so.name}.{os.getpid()}.tmp")
-    cmd = [find_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    t0 = time.perf_counter()
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    if res.returncode != 0:
-        raise RuntimeError(f"nvcc failed with code {res.returncode} on {src}:"
-                           f"\n{res.stdout}{res.stderr}")
-    os.replace(tmp, so)   # atomic: a concurrent build never sees a partial file
-    ptxas = " | ".join(line.strip() for line in res.stderr.splitlines()
-                       if "ptxas" in line)
-    print(f"built {so.name} in {seconds:.1f} s: {ptxas}", file=sys.stderr)
-    return Built(so, seconds, ptxas)
+    return build_all([name])[name]
 
 
 def load(name: str) -> ctypes.CDLL:

@@ -3,7 +3,8 @@
 `composite_gathered` runs on the same (T, 8, K) gathered blocks as the
 compositing kernel with the reference math (cumulative log-space
 transmittance, per-tile count mask), so either can be held against it
-elementwise. Runs anywhere.
+elementwise, and torch autograd of it against the backward kernel. Runs
+anywhere.
 """
 
 from __future__ import annotations
@@ -24,6 +25,23 @@ def tile_pixel_coords(t_idx: torch.Tensor, tiles_x: int, ts: int):
     return px, py
 
 
+def tile_alpha_parts(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
+                     in_count: torch.Tensor, cfg: RenderConfig,
+                     dlim: torch.Tensor | None = None):
+    """`tile_alpha` and what the backward needs beside it: (alpha, keep,
+    raw = opacity * e^-q before the clamp, dx, dy), each (n, P, k)."""
+    dx = px[:, :, None] - g[:, None, 0]
+    dy = py[:, :, None] - g[:, None, 1]
+    q = 0.5 * (g[:, None, 2] * dx * dx + g[:, None, 4] * dy * dy) \
+        + g[:, None, 3] * dx * dy
+    raw = g[:, None, 5] * torch.exp(-q)
+    alpha = torch.clamp_max(raw, cfg.alpha_clamp)
+    keep = in_count[:, None, :] & (alpha >= cfg.alpha_min) & (q >= 0.0)
+    if dlim is not None:
+        keep = keep & (g[:, None, 6] <= dlim[:, :, None])
+    return torch.where(keep, alpha, torch.zeros_like(alpha)), keep, raw, dx, dy
+
+
 def tile_alpha(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
                in_count: torch.Tensor, cfg: RenderConfig,
                dlim: torch.Tensor | None = None) -> torch.Tensor:
@@ -31,15 +49,7 @@ def tile_alpha(g: torch.Tensor, px: torch.Tensor, py: torch.Tensor,
     centers px/py (n, P): zero unless the slot is in the tile's count
     (in_count (n, k)), alpha >= alpha_min, q >= 0 and, with dlim (n, P),
     the splat's depth (geom row 6) is within the pixel's limit."""
-    dx = px[:, :, None] - g[:, None, 0]
-    dy = py[:, :, None] - g[:, None, 1]
-    q = 0.5 * (g[:, None, 2] * dx * dx + g[:, None, 4] * dy * dy) \
-        + g[:, None, 3] * dx * dy
-    alpha = torch.clamp_max(g[:, None, 5] * torch.exp(-q), cfg.alpha_clamp)
-    keep = in_count[:, None, :] & (alpha >= cfg.alpha_min) & (q >= 0.0)
-    if dlim is not None:
-        keep = keep & (g[:, None, 6] <= dlim[:, :, None])
-    return torch.where(keep, alpha, torch.zeros_like(alpha))
+    return tile_alpha_parts(g, px, py, in_count, cfg, dlim)[0]
 
 
 def composite_gathered(

@@ -1,4 +1,4 @@
-"""Per-tile front-to-back compositing forward: Hopper kernel + plain torch.
+"""Per-tile compositing, forward and backward: Hopper kernels + plain torch.
 
 `composite_fwd` replaces robosimgs_tpu/render/pallas_kernels.py::
 _fwd_kernel (entry composite_fwd_pallas) with the hand-written CUDA
@@ -7,23 +7,31 @@ kernel in csrc/composite_fwd.cu, with the same inputs and outputs:
   (T,8,K) geom/feat + (T,) counts + (T,P,1) depth limits ->
   (out (T,8,P), log_t_final (T,P,1), nblk (T,) int32)
 
-log_t_final and nblk are the contract with the backward (the training
-slice): nblk counts the 128-splat blocks a tile processed before all of
-its pixels saturated, and log_t_final sums log1p(-alpha) over every kept
-splat of those blocks.
+`composite_bwd` replaces _bwd_kernel (entry composite_bwd_pallas) with
+csrc/composite_bwd.cu: one back-to-front sweep per tile from the
+forward's residuals,
 
-What bounds the kernel on an H100: about 17 FP32 operations (one of
-them an SFU exp) per evaluated (pixel, splat) pair and about 22 more
-(a log1p, 8 channel FMAs) per pair that adds weight, against 64 B of
-geom/feat per splat shared by the tile's 256 pixels and 40 B of outputs
-per pixel — operations, by a wide margin. The design stages each splat block once
-into shared memory, keeps every per-pixel value in registers and stops a
-tile at the first block boundary where no pixel is live
-(csrc/composite_fwd.cu has the details).
+  forward inputs + gout (T,8,P) + log_t_final + nblk ->
+  (dgeom (T,8,K), dfeat (T,8,K))
 
-On a CPU tensor the wrapper runs `composite_fwd_plain`, the same
-function in plain torch; on a CUDA tensor it launches the kernel or
-raises.
+nblk counts the 128-splat blocks a tile processed before all of its
+pixels saturated, and log_t_final sums log1p(-alpha) over every kept
+splat of those blocks; the backward rebuilds each splat's transmittance
+from them in log space. `Composite` joins the pair into one autograd op
+(the counterpart of the JAX package's custom_vjp in render/tiled.py).
+
+What bounds both kernels on an H100: per evaluated (pixel, splat) pair
+about 17 FP32 operations (one of them an SFU exp), and per pair that
+adds weight about 22 more in the forward (a log1p, 8 channel FMAs) and
+about 74 more in the backward (the gate, gamma's 8 FMAs, 14 products
+summed over the tile), against 64 B of geom/feat per splat shared by the tile's 256
+pixels — operations, by a wide margin. Both stage each splat block once
+into shared memory and keep every per-pixel value in registers; the
+csrc/ sources have the details.
+
+On a CPU tensor each wrapper runs its plain torch version
+(`composite_fwd_plain`, `composite_bwd_plain`); on a CUDA tensor it
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -34,17 +42,21 @@ import torch
 
 from robosimgs_tpu_torch.render import _build
 from robosimgs_tpu_torch.render.config import RenderConfig
-from robosimgs_tpu_torch.render.gathered import tile_alpha, tile_pixel_coords
+from robosimgs_tpu_torch.render.gathered import (tile_alpha, tile_alpha_parts,
+                                                 tile_pixel_coords)
 
 # splats per block: the unit of the early exit and of nblk (Pallas BK)
 BK = 128
-# tiles per pass of the plain version: bounds its (tiles, P, BK) temporaries
+# tiles per pass of the plain versions: bounds their (tiles, P, BK)
+# temporaries
 _PLAIN_TILE_CHUNK = 128
+# threads per block of the backward kernel (one per pixel of a tile)
+_BWD_MAX_PIXELS = 256
 
 
 def _check_chunking(cfg: RenderConfig, CK: int) -> None:
     """tile_chunk validation, as the JAX package's `_chunking`
-    (pallas_kernels.py). The CUDA kernel streams the whole capacity, so
+    (pallas_kernels.py). The CUDA kernels stream the whole capacity, so
     the chunking only has to be valid."""
     kc = cfg.tile_chunk or CK
     if kc % BK != 0:
@@ -52,6 +64,17 @@ def _check_chunking(cfg: RenderConfig, CK: int) -> None:
     if CK % kc != 0:
         raise ValueError(f"tile_capacity {CK} must be a multiple of "
                          f"tile_chunk {kc}")
+
+
+def _check(x: torch.Tensor, name: str, shape: tuple, dtype: torch.dtype,
+           device: torch.device) -> None:
+    if tuple(x.shape) != shape or x.dtype != dtype:
+        raise ValueError(f"{name} must be {shape} {dtype}, got "
+                         f"{tuple(x.shape)} {x.dtype}")
+    if x.device != device:
+        raise ValueError(f"{name} on {x.device}, geom on {device}")
+    if not x.is_contiguous():
+        raise ValueError("inputs must be contiguous")
 
 
 def _check_inputs(geom, feat, counts, dlim, cfg, has_dlim):
@@ -63,35 +86,42 @@ def _check_inputs(geom, feat, counts, dlim, cfg, has_dlim):
     if P > 1024:
         raise ValueError(f"tile_size {cfg.tile_size}: {P} pixels exceed the "
                          f"1024 threads of one block")
-    if feat.shape != geom.shape:
-        raise ValueError(f"feat {tuple(feat.shape)} != geom {tuple(geom.shape)}")
-    if counts.shape != (T,) or counts.dtype != torch.int32:
-        raise ValueError(f"counts must be ({T},) int32, got "
-                         f"{tuple(counts.shape)} {counts.dtype}")
-    tensors = [geom, feat, counts]
+    dev = geom.device
+    _check(geom, "geom", (T, 8, K), torch.float32, dev)
+    _check(feat, "feat", (T, 8, K), torch.float32, dev)
+    _check(counts, "counts", (T,), torch.int32, dev)
     if has_dlim:
-        if dlim is None or dlim.shape != (T, P, 1):
+        if dlim is None:
             raise ValueError(f"dlim must be ({T}, {P}, 1) with has_dlim")
-        tensors.append(dlim)
-    for x in tensors:
-        if x is not counts and x.dtype != torch.float32:
-            raise ValueError(f"float inputs must be float32, got {x.dtype}")
-        if x.device != geom.device:
-            raise ValueError(f"inputs on {x.device} and {geom.device}")
-        if not x.is_contiguous():
-            raise ValueError("inputs must be contiguous")
+        _check(dlim, "dlim", (T, P, 1), torch.float32, dev)
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load("composite_fwd")
-    fn = lib.composite_fwd_launch
+_PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+# the C signatures of csrc/*.cu's launch functions: tensors, the int
+# shapes, the 3 RenderConfig thresholds, (backward) absgrad, the stream
+_ARGTYPES = {
+    "composite_fwd": [_PTR] * 7 + [_I32] * 5 + [_F32] * 3 + [_PTR],
+    "composite_bwd": [_PTR] * 9 + [_I32] * 5 + [_F32] * 3 + [_I32, _PTR],
+}
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    """The loaded library of csrc/<name>.cu, its functions typed."""
+    lib = _build.load(name)
+    fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
-        ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-        fn.argtypes = [ptr] * 7 + [i32] * 5 + [f32] * 3 + [ptr]
+        fn.argtypes = _ARGTYPES[name]
         fn.restype = ctypes.c_int
-        lib.composite_fwd_error_string.argtypes = [ctypes.c_int]
-        lib.composite_fwd_error_string.restype = ctypes.c_char_p
+        err = getattr(lib, f"{name}_error_string")
+        err.argtypes = [ctypes.c_int]
+        err.restype = ctypes.c_char_p
     return lib
+
+
+def _raise_on(lib: ctypes.CDLL, name: str, rc: int) -> None:
+    if rc != 0:
+        msg = getattr(lib, f"{name}_error_string")(rc).decode()
+        raise RuntimeError(f"{name} launch failed: {msg} ({rc})")
 
 
 def composite_fwd(geom: torch.Tensor, feat: torch.Tensor,
@@ -105,11 +135,9 @@ def composite_fwd(geom: torch.Tensor, feat: torch.Tensor,
     tensors. dlim may be None when has_dlim is False. n_tiles_per_image:
     tile t takes the pixel coordinates of tile t % n_tiles_per_image
     (multi-camera batches concatenated on the tile axis; 0 = T).
-    `composite_fwd.launches` counts kernel launches."""
+    Records no autograd graph of its own: `Composite` is the
+    differentiable form. `composite_fwd.launches` counts kernel launches."""
     _check_inputs(geom, feat, counts, dlim, cfg, has_dlim)
-    if torch.is_grad_enabled() and (geom.requires_grad or feat.requires_grad):
-        raise NotImplementedError(
-            "composite_fwd has no backward yet; call it under torch.no_grad()")
     if geom.device.type == "cpu":
         return composite_fwd_plain(geom, feat, counts, dlim, tiles_x=tiles_x,
                                    cfg=cfg, n_tiles_per_image=n_tiles_per_image,
@@ -123,7 +151,7 @@ def composite_fwd(geom: torch.Tensor, feat: torch.Tensor,
     nblk = torch.empty((T,), dtype=torch.int32, device=geom.device)
     if T == 0:
         return out, log_t_final, nblk
-    lib = _lib()
+    lib = _lib("composite_fwd")
     stream = torch.cuda.current_stream(geom.device).cuda_stream
     with torch.cuda.device(geom.device):
         rc = lib.composite_fwd_launch(
@@ -132,9 +160,7 @@ def composite_fwd(geom: torch.Tensor, feat: torch.Tensor,
             out.data_ptr(), log_t_final.data_ptr(), nblk.data_ptr(),
             T, K, tiles_x, n_tiles_per_image or T, cfg.tile_size,
             cfg.alpha_clamp, cfg.alpha_min, cfg.transmittance_min, stream)
-    if rc != 0:
-        msg = lib.composite_fwd_error_string(rc).decode()
-        raise RuntimeError(f"composite_fwd launch failed: {msg} ({rc})")
+    _raise_on(lib, "composite_fwd", rc)
     composite_fwd.launches += 1
     return out, log_t_final, nblk
 
@@ -149,7 +175,9 @@ def composite_fwd_plain(geom: torch.Tensor, feat: torch.Tensor,
     """`composite_fwd` in plain torch, block by block like the Pallas
     kernel: within a 128-splat block T_k = T_block * exp(exclusive
     cumsum of log1p(-alpha)); a tile stops before the first block where
-    its count is exhausted or no pixel has T >= transmittance_min."""
+    its count is exhausted or no pixel has T >= transmittance_min.
+    log_t_final adds each block's sum once, the grouping
+    `composite_bwd_plain` takes back."""
     T, _, K = geom.shape
     ts = cfg.tile_size
     P = ts * ts
@@ -192,3 +220,167 @@ def composite_fwd_plain(geom: torch.Tensor, feat: torch.Tensor,
         log_t_final[s:e, :, 0] = ltc
         nblk[s:e] = nb
     return out, log_t_final, nblk
+
+
+def _check_bwd_inputs(geom, feat, counts, dlim, gout, log_t_final, nblk, cfg,
+                      has_dlim):
+    _check_inputs(geom, feat, counts, dlim, cfg, has_dlim)
+    T = geom.shape[0]
+    P = cfg.tile_size * cfg.tile_size
+    dev = geom.device
+    _check(gout, "gout", (T, 8, P), torch.float32, dev)
+    _check(log_t_final, "log_t_final", (T, P, 1), torch.float32, dev)
+    _check(nblk, "nblk", (T,), torch.int32, dev)
+
+
+def composite_bwd(geom: torch.Tensor, feat: torch.Tensor,
+                  counts: torch.Tensor, dlim: torch.Tensor | None,
+                  gout: torch.Tensor, log_t_final: torch.Tensor,
+                  nblk: torch.Tensor, *, tiles_x: int, cfg: RenderConfig,
+                  n_tiles_per_image: int = 0, has_dlim: bool = True):
+    """The backward of `composite_fwd`: its inputs, the cotangent gout
+    (T,8,P) of its output and its residuals (log_t_final, nblk) ->
+    (dgeom (T,8,K), dfeat (T,8,K)).
+
+    dgeom rows: d mx, d my, d conic a/b/c, d opacity, 0 (depth is not
+    differentiated), and with cfg.absgrad the summed |d mx| per pixel;
+    dfeat: gout . w per channel, row 7 the summed |d my| under absgrad.
+    Slots outside the processed blocks are 0. The CUDA kernel for CUDA
+    tensors, `composite_bwd_plain` for CPU tensors;
+    `composite_bwd.launches` counts kernel launches."""
+    _check_bwd_inputs(geom, feat, counts, dlim, gout, log_t_final, nblk, cfg,
+                      has_dlim)
+    if geom.device.type == "cpu":
+        return composite_bwd_plain(geom, feat, counts, dlim, gout,
+                                   log_t_final, nblk, tiles_x=tiles_x,
+                                   cfg=cfg, n_tiles_per_image=n_tiles_per_image,
+                                   has_dlim=has_dlim)
+    if geom.device.type != "cuda":
+        raise ValueError(f"composite_bwd runs on cuda or cpu, not {geom.device}")
+    T, _, K = geom.shape
+    P = cfg.tile_size * cfg.tile_size
+    if P % 32 or P > _BWD_MAX_PIXELS:
+        raise ValueError(f"composite_bwd needs tile_size**2 a multiple of 32 "
+                         f"and at most {_BWD_MAX_PIXELS}, got {P}")
+    dgeom = torch.empty((T, 8, K), dtype=torch.float32, device=geom.device)
+    dfeat = torch.empty((T, 8, K), dtype=torch.float32, device=geom.device)
+    if T == 0:
+        return dgeom, dfeat
+    lib = _lib("composite_bwd")
+    stream = torch.cuda.current_stream(geom.device).cuda_stream
+    with torch.cuda.device(geom.device):
+        rc = lib.composite_bwd_launch(
+            geom.data_ptr(), feat.data_ptr(), counts.data_ptr(),
+            dlim.data_ptr() if has_dlim else None, gout.data_ptr(),
+            log_t_final.data_ptr(), nblk.data_ptr(), dgeom.data_ptr(),
+            dfeat.data_ptr(), T, K, tiles_x, n_tiles_per_image or T,
+            cfg.tile_size, cfg.alpha_clamp, cfg.alpha_min,
+            cfg.transmittance_min, int(cfg.absgrad), stream)
+    _raise_on(lib, "composite_bwd", rc)
+    composite_bwd.launches += 1
+    return dgeom, dfeat
+
+
+composite_bwd.launches = 0
+
+
+def composite_bwd_plain(geom: torch.Tensor, feat: torch.Tensor,
+                        counts: torch.Tensor, dlim: torch.Tensor | None,
+                        gout: torch.Tensor, log_t_final: torch.Tensor,
+                        nblk: torch.Tensor, *, tiles_x: int, cfg: RenderConfig,
+                        n_tiles_per_image: int = 0, has_dlim: bool = True):
+    """`composite_bwd` in plain torch, block by block like the Pallas
+    kernel: the processed blocks in reverse; in each, inclusive cumsums
+    of log1p(-alpha) and of gamma * w. The log-T entering a block is the
+    carried log-T minus the block's sum, which the forward added once, so
+    saturated pixels, whose log T sits near -350, keep their front
+    splats' transmittance."""
+    T, _, K = geom.shape
+    ts = cfg.tile_size
+    P = ts * ts
+    dev = geom.device
+    t_min = cfg.transmittance_min
+    t_img = torch.arange(T, device=dev) % (n_tiles_per_image or max(T, 1))
+    cnt_all = counts.long().clamp(0, K)
+    nb_all = nblk.long().clamp(0, K // BK)
+    dgeom = geom.new_zeros((T, 8, K))
+    dfeat = geom.new_zeros((T, 8, K))
+    for s in range(0, T, _PLAIN_TILE_CHUNK):
+        e = min(s + _PLAIN_TILE_CHUNK, T)
+        n_blocks = int(nb_all[s:e].max()) if e > s else 0
+        px, py = tile_pixel_coords(t_img[s:e], tiles_x, ts)
+        cnt, nb, go = cnt_all[s:e], nb_all[s:e], gout[s:e]
+        dl = dlim[s:e, :, 0] if has_dlim else None
+        lte = log_t_final[s:e, :, 0]
+        suf = geom.new_zeros((e - s, P))
+        for i in range(n_blocks - 1, -1, -1):
+            off = i * BK
+            live = (nb > i)[:, None]
+            g = geom[s:e, :, off:off + BK]
+            f = feat[s:e, :, off:off + BK]
+            in_count = (off + torch.arange(BK, device=dev))[None, :] < cnt[:, None]
+            alpha, keep, raw, dx, dy = tile_alpha_parts(g, px, py, in_count,
+                                                        cfg, dl)
+            om = 1.0 - alpha
+            lg = torch.log1p(-alpha)
+            incl = torch.cumsum(lg, dim=2)
+            lin = lte - incl[:, :, -1]                   # log T entering
+            Tk = torch.exp(lin[:, :, None] + (incl - lg))
+            m = Tk * om >= t_min
+            w = alpha * Tk * m
+            gamma = torch.einsum("ncp,nck->npk", go, f)
+            gw = gamma * w
+            incl_gw = torch.cumsum(gw, dim=2)
+            suffix = suf[:, :, None] + (incl_gw[:, :, -1:] - incl_gw)
+            dalpha = torch.where(m, gamma * Tk, 0.0) - suffix / om
+            dalpha = torch.where(keep, dalpha, 0.0)
+            dq = torch.where(raw < cfg.alpha_clamp, -alpha * dalpha, 0.0)
+            ca, cb, cc = g[:, None, 2], g[:, None, 3], g[:, None, 4]
+            ex = dq * (ca * dx + cb * dy)                # -(d mx) per pixel
+            ey = dq * (cc * dy + cb * dx)
+            zeros = torch.zeros_like(ex[:, 0])
+            dgeom_b = torch.stack([
+                -ex.sum(1), -ey.sum(1),
+                0.5 * (dq * dx * dx).sum(1), (dq * dx * dy).sum(1),
+                0.5 * (dq * dy * dy).sum(1),
+                -dq.sum(1) / g[:, 5].clamp_min(1e-30),
+                zeros, ex.abs().sum(1) if cfg.absgrad else zeros], dim=1)
+            dfeat_b = torch.einsum("ncp,npk->nck", go, w)
+            if cfg.absgrad:
+                dfeat_b[:, 7] = ey.abs().sum(1)
+            dgeom[s:e, :, off:off + BK] = torch.where(live[:, :, None],
+                                                      dgeom_b, 0.0)
+            dfeat[s:e, :, off:off + BK] = torch.where(live[:, :, None],
+                                                      dfeat_b, 0.0)
+            suf = torch.where(live, suf + incl_gw[:, :, -1], suf)
+            lte = torch.where(live, lin, lte)
+    return dgeom, dfeat
+
+
+class Composite(torch.autograd.Function):
+    """`composite_fwd` with `composite_bwd` as its backward: (geom, feat)
+    -> out (T,8,P), differentiable in geom and feat; counts and dlim get
+    no gradient. The forward saves (geom, feat, counts, dlim,
+    log_t_final, nblk) for the backward.
+
+        out = Composite.apply(geom, feat, counts, dlim, tiles_x, cfg,
+                              n_tiles_per_image, has_dlim)
+    """
+
+    @staticmethod
+    def forward(ctx, geom, feat, counts, dlim, tiles_x: int, cfg: RenderConfig,
+                n_tiles_per_image: int = 0, has_dlim: bool = True):
+        kw = dict(tiles_x=tiles_x, cfg=cfg,
+                  n_tiles_per_image=n_tiles_per_image, has_dlim=has_dlim)
+        out, log_t_final, nblk = composite_fwd(geom, feat, counts, dlim, **kw)
+        ctx.save_for_backward(geom, feat, counts, dlim, log_t_final, nblk)
+        ctx.kw = kw
+        return out
+
+    @staticmethod
+    def backward(ctx, gout):
+        geom, feat, counts, dlim, log_t_final, nblk = ctx.saved_tensors
+        dgeom, dfeat = composite_bwd(geom, feat, counts, dlim,
+                                     gout.contiguous(), log_t_final, nblk,
+                                     **ctx.kw)
+        return dgeom, dfeat, None, None, None, None, None, None

@@ -1,9 +1,11 @@
 """Tile-binned rasterization path (binning + compositing kernel).
 
 Pipeline: project -> bin_and_gather_packed (depth-ordered per-tile
-blocks) -> per-tile composite (the hand-written CUDA kernel on the card,
-its plain torch version on the CPU) -> untile. Forward only: the
-compositor backward arrives with the training slice.
+blocks) -> per-tile composite -> untile. The composite is `Composite`,
+the hand-written CUDA forward and backward kernels on the card and their
+plain torch versions on the CPU, so the path is differentiable: the
+per-Gaussian gradient is the transpose of the binner's row gather
+(`packed[sel]`), accumulated by torch autograd.
 """
 
 from __future__ import annotations
@@ -15,7 +17,7 @@ import torch
 from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
 from robosimgs_tpu_torch.render.config import RenderConfig
 from robosimgs_tpu_torch.render.gathered import tile_image, untile
-from robosimgs_tpu_torch.render.kernels import composite_fwd
+from robosimgs_tpu_torch.render.kernels import Composite
 from robosimgs_tpu_torch.render.project import Projected
 from robosimgs_tpu_torch.render.tiles import num_tiles
 
@@ -100,9 +102,10 @@ def composite_from_tiles(
     tiles_x, tiles_y = num_tiles(width, height, cfg.tile_size)
 
     has_dlim = dlim is not None
-    out_tiles, _, _ = composite_fwd(
-        geom, feat, counts, dlim[..., None].contiguous() if has_dlim else None,
-        tiles_x=tiles_x, cfg=cfg, has_dlim=has_dlim)
+    out_tiles = Composite.apply(
+        geom, feat, counts.detach(),
+        dlim.detach()[..., None].contiguous() if has_dlim else None,
+        tiles_x, cfg, 0, has_dlim)
 
     img = untile(out_tiles, tiles_x, tiles_y, width, height, cfg.tile_size)
     acc_a = img[..., 4]

@@ -194,6 +194,6 @@ def test_composite_fwd_rejects_bad_inputs():
     with pytest.raises(ValueError, match="contiguous"):
         composite_fwd(t(geom).transpose(0, 2).contiguous().transpose(0, 2),
                       t(feat), t(counts), t(dlim), tiles_x=TILES_X, cfg=cfg)
-    with pytest.raises(NotImplementedError, match="backward"):
-        composite_fwd(t(geom).requires_grad_(), t(feat), t(counts), t(dlim),
+    with pytest.raises(ValueError, match="float32"):
+        composite_fwd(t(geom).double(), t(feat), t(counts), t(dlim),
                       tiles_x=TILES_X, cfg=cfg)

@@ -1,0 +1,224 @@
+"""Compositing backward parity: the port's composite_bwd (its plain torch
+version on the CPU) against the JAX package's Pallas backward in
+interpret mode, both fed the Pallas forward's residuals (log_t_final,
+nblk) and the same seeded cotangent, on per-tile blocks the JAX
+package's own pipeline (project + bin_and_gather_packed) builds from
+its seeded scenes; and the autograd op `Composite` against torch
+autograd of the gathered oracle."""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from robosimgs_tpu.core.camera import Camera as JCamera
+from robosimgs_tpu.core.types import Gaussians as JGaussians
+from robosimgs_tpu.render.binning import bin_and_gather_packed as jbin
+from robosimgs_tpu.render.config import RenderConfig as JConfig
+from robosimgs_tpu.render.pallas_kernels import (composite_bwd_pallas,
+                                                composite_fwd_pallas)
+from robosimgs_tpu.render.project import project as jproject
+
+from robosimgs_tpu_torch.render.config import RenderConfig
+from robosimgs_tpu_torch.render.gathered import composite_gathered
+from robosimgs_tpu_torch.render.kernels import (Composite, composite_bwd,
+                                                composite_fwd)
+from test_torch_composite import COUNTS, P, TILES_X, make_inputs
+
+# test_tiled.py:117-120's tolerances for the hand-derived backward. The
+# Pallas kernel forms its geometry rows from tile-local pixel moments
+# (sum dq x^2 - 2 mx sum dq x + ...), whose f32 cancellation is below
+# these on the pipeline's blocks.
+ATOL, RTOL = 1e-4, 1e-3
+CFG = dict(tile_capacity=256, max_tiles_per_gaussian=64)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _one_thread():
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
+def camera(eye, w, h, fov=60.0):
+    return JCamera.look_at(eye, [0, 0, 0], [0, 0, 1], fov, w, h)
+
+
+def blocks(g, cam, kw, absgrad=False):
+    """The JAX pipeline's (geom, feat, counts) numpy blocks of one view."""
+    cfg = JConfig(**kw)
+
+    @jax.jit
+    def pipeline(g):
+        probe = jnp.zeros((g.capacity, 2)) if absgrad else None
+        return jbin(jproject(g, cam, cfg, abs_probe=probe), cam.width,
+                    cam.height, cfg)
+
+    geom, feat, counts, stats = pipeline(g)
+    assert int(stats.overflowed_tiles) == 0
+    return np.array(geom), np.array(feat), np.array(counts)
+
+
+def run_both(geom, feat, counts, tiles_x, kw, dlim=None, n_img=0, seed=0):
+    """(jax (dgeom, dfeat), port (dgeom, dfeat), nblk) from the same
+    inputs, Pallas forward residuals and cotangent: N(0, 1) on the rgb,
+    depth and alpha rows, 0 on rows 5..7 as the losses give."""
+    T = geom.shape[0]
+    gout = np.random.default_rng(100 + seed).normal(
+        size=(T, 8, P)).astype(np.float32)
+    gout[:, 5:] = 0.0
+    has_dlim = dlim is not None
+    j = jnp.asarray
+    jdlim = j(dlim) if has_dlim else jnp.full((T, P, 1), jnp.inf)
+    opts = dict(tiles_x=tiles_x, cfg=JConfig(**kw), interpret=True,
+                n_tiles_per_image=n_img, has_dlim=has_dlim)
+    args = (j(geom), j(feat), j(counts), jdlim)
+    _, tfin, nblk = composite_fwd_pallas(*args, **opts)
+    jd = composite_bwd_pallas(*args, j(gout), tfin, nblk, **opts)
+    t = torch.from_numpy
+    d = composite_bwd(t(geom), t(feat), t(counts), t(dlim) if has_dlim else None,
+                      t(gout), t(np.array(tfin)), t(np.array(nblk)),
+                      tiles_x=tiles_x, cfg=RenderConfig(**kw),
+                      n_tiles_per_image=n_img, has_dlim=has_dlim)
+    return tuple(np.asarray(x) for x in jd), tuple(x.numpy() for x in d), \
+        np.asarray(nblk)
+
+
+def assert_matches(jd, d, absgrad=False):
+    """dgeom rows 0..5 and dfeat rows 0..3 (+ both rows 7 under absgrad,
+    which own them); the rest is 0 on both sides here."""
+    (jg, jf), (g, f) = jd, d
+    rows_g = [0, 1, 2, 3, 4, 5] + ([7] if absgrad else [])
+    rows_f = [0, 1, 2, 3] + ([7] if absgrad else [])
+    np.testing.assert_allclose(g[:, rows_g], jg[:, rows_g], atol=ATOL,
+                               rtol=RTOL, err_msg="dgeom")
+    np.testing.assert_allclose(f[:, rows_f], jf[:, rows_f], atol=ATOL,
+                               rtol=RTOL, err_msg="dfeat")
+    assert (g[:, 6] == 0).all()
+    if not absgrad:
+        assert (g[:, 7] == 0).all()
+
+
+def test_composite_bwd_matches_pallas_default():
+    """test_tiled.py:87's scene: 80 Gaussians, 48x32."""
+    g = JGaussians.random(jax.random.PRNGKey(5), 80, sh_degree=1)
+    geom, feat, counts = blocks(g, camera([4.0, 0.3, 0.8], 48, 32), CFG)
+    jd, d, nblk = run_both(geom, feat, counts, 3, CFG)
+    assert_matches(jd, d)
+    dgeom, dfeat = d
+    assert np.abs(dgeom[:, :6]).max() > 1e-2 and (nblk >= 1).any()
+    # slots past a tile's count (opacity 0) get zero on every row, so
+    # binner padding leaks no gradient into the Gaussian it points at
+    pad = np.arange(geom.shape[2])[None, :] >= counts[:, None]
+    assert pad.any()
+    assert (np.abs(dgeom).sum(1)[pad] == 0).all()
+    assert (np.abs(dfeat).sum(1)[pad] == 0).all()
+
+
+def test_composite_bwd_matches_pallas_dlim_two_images():
+    """Two views of one scene concatenated on the tile axis
+    (n_tiles_per_image) with a random depth limit, inf on some pixels."""
+    g = JGaussians.random(jax.random.PRNGKey(6), 120, sh_degree=1)
+    b1 = blocks(g, camera([4.0, 0.3, 0.8], 48, 32), CFG)
+    b2 = blocks(g, camera([-3.0, 2.5, 1.0], 48, 32), CFG)
+    geom, feat, counts = (np.concatenate([x, y]) for x, y in zip(b1, b2))
+    T = geom.shape[0]
+    rng = np.random.default_rng(1)
+    dlim = rng.uniform(3.0, 5.0, (T, P, 1)).astype(np.float32)
+    dlim[:, ::7] = np.inf
+    jd, d, _ = run_both(geom, feat, counts, 3, CFG, dlim=dlim, n_img=T // 2,
+                        seed=1)
+    assert_matches(jd, d)
+
+
+def test_composite_bwd_matches_pallas_absgrad():
+    """test_tiled.py:246's setting: the abs_probe rides geom/feat rows 7."""
+    kw = dict(CFG, absgrad=True)
+    g = JGaussians.random(jax.random.PRNGKey(5), 60, sh_degree=1)
+    geom, feat, counts = blocks(g, camera([3.0, 0.4, 0.8], 48, 32), kw,
+                                absgrad=True)
+    jd, d, _ = run_both(geom, feat, counts, 3, kw, seed=2)
+    assert_matches(jd, d, absgrad=True)
+    dgeom, dfeat = d
+    # rows 7 hold per-pixel |screen grad| sums: >= the signed sums
+    assert (dgeom[:, 7] >= np.abs(dgeom[:, 0]) - 1e-5).all()
+    assert (dfeat[:, 7] >= np.abs(dgeom[:, 1]) - 1e-5).all()
+    assert dgeom[:, 7].max() > 1e-2
+
+
+def test_composite_bwd_matches_pallas_saturated():
+    """test_tiled.py:390's scene: 64 stacked near-opaque splats, whose
+    pixels' linear T underflows to 0 in the forward; the backward
+    rebuilds T from log-T and the front splats' gradients are not zero."""
+    n = 64
+    g = JGaussians.random(jax.random.PRNGKey(0), n, sh_degree=1)
+    means = np.zeros((n, 3), np.float32)
+    means[:, 0] = np.linspace(-0.01, 0.01, n)
+    g = g.replace(means=jnp.asarray(means),
+                  logit_opacities=jnp.full((n,), 6.0))
+    kw = dict(tile_capacity=128)
+    geom, feat, counts = blocks(g, camera([2.5, 0.0, 0.0], 32, 32, 45.0), kw)
+    jd, d, _ = run_both(geom, feat, counts, 2, kw, seed=3)
+    assert_matches(jd, d)
+    dgeom, dfeat = d
+    assert counts.max() >= 60
+    assert np.abs(dgeom[:, :6]).max() > 0.1
+    assert np.abs(dfeat[:, :4]).max() > 0.1
+
+
+def test_composite_bwd_matches_pallas_chunked():
+    """test_tiled.py:149's scene: capacity 512 streamed by the Pallas
+    kernel as 128-entry chunks with carried state; the port sweeps the
+    whole capacity."""
+    kw = dict(tile_capacity=512, tile_chunk=128, max_tiles_per_gaussian=64)
+    g = JGaussians.random(jax.random.PRNGKey(9), 400, sh_degree=1)
+    geom, feat, counts = blocks(g, camera([5.0, 0.3, 0.8], 32, 32), kw)
+    assert counts.max() > 128
+    jd, d, nblk = run_both(geom, feat, counts, 2, kw, seed=4)
+    assert nblk.max() >= 2
+    assert_matches(jd, d)
+
+
+@pytest.mark.parametrize("has_dlim", [False, True])
+def test_composite_autograd_matches_gathered_autograd(has_dlim):
+    geom, feat, counts, dlim = make_inputs(COUNTS, 256, seed=5)
+    gout = torch.from_numpy(np.random.default_rng(5).normal(
+        size=(6, 8, P)).astype(np.float32))
+    cfg = RenderConfig()
+
+    def grads(fn):
+        g = torch.from_numpy(geom).requires_grad_()
+        f = torch.from_numpy(feat).requires_grad_()
+        out = fn(g, f)
+        (out * gout).sum().backward()
+        return out.detach().numpy(), g.grad.numpy(), f.grad.numpy()
+
+    t = torch.from_numpy
+    dl = t(dlim) if has_dlim else None
+    got = grads(lambda g, f: Composite.apply(g, f, t(counts), dl, TILES_X, cfg,
+                                             0, has_dlim))
+    want = grads(lambda g, f: composite_gathered(
+        g, f, t(counts), TILES_X, cfg, dl[..., 0] if has_dlim else None))
+    np.testing.assert_allclose(got[0], want[0], atol=1e-5, rtol=1e-5)
+    np.testing.assert_allclose(got[1][:, :6], want[1][:, :6], atol=ATOL,
+                               rtol=RTOL)
+    np.testing.assert_allclose(got[2], want[2], atol=ATOL, rtol=RTOL)
+
+
+def test_composite_bwd_rejects_bad_inputs():
+    geom, feat, counts, dlim = make_inputs([3] * 6, 128)
+    t = torch.from_numpy
+    out, tfin, nblk = composite_fwd(t(geom), t(feat), t(counts), t(dlim),
+                                    tiles_x=TILES_X, cfg=RenderConfig())
+    kw = dict(tiles_x=TILES_X, cfg=RenderConfig())
+    with pytest.raises(ValueError, match="gout"):
+        composite_bwd(t(geom), t(feat), t(counts), t(dlim), out[:, :4], tfin,
+                      nblk, **kw)
+    with pytest.raises(ValueError, match="nblk"):
+        composite_bwd(t(geom), t(feat), t(counts), t(dlim), out, tfin,
+                      nblk.long(), **kw)
+    with pytest.raises(ValueError, match="log_t_final"):
+        composite_bwd(t(geom), t(feat), t(counts), t(dlim), out, tfin[:, :, 0],
+                      nblk, **kw)

@@ -13,6 +13,7 @@ from robosimgs_tpu.core import math3d as jmath3d
 from robosimgs_tpu.core import sh as jsh
 from robosimgs_tpu.core.camera import Camera as JCamera
 from robosimgs_tpu.core.types import Gaussians as JGaussians
+from robosimgs_tpu.core.types import _knn_mean_dist
 
 from robosimgs_tpu_torch.core import math3d, sh
 from robosimgs_tpu_torch.core.camera import Camera
@@ -119,8 +120,12 @@ def test_from_points_matches_jax():
     for f in dataclasses.fields(g):
         np.testing.assert_allclose(getattr(g, f.name).numpy(),
                                    np.asarray(getattr(jg, f.name)), atol=ATOL)
-    with pytest.raises(ValueError, match="init_scale"):
-        Gaussians.from_points(pts, device="cpu")
+    # without init_scale: the 3-NN mean distance, as the JAX package's
+    # numpy _knn_mean_dist gives it
+    knn = Gaussians.from_points(pts, device="cpu")
+    jknn = JGaussians.from_points(pts, init_scale=_knn_mean_dist(pts, k=3))
+    np.testing.assert_allclose(knn.log_scales.numpy(),
+                               np.asarray(jknn.log_scales), rtol=1e-5)
 
 
 def test_random_is_seeded_and_shaped():

@@ -1,4 +1,5 @@
-"""The CUDA compositing kernel against its plain torch version, on the card.
+"""The CUDA compositing kernels against their plain torch versions, and
+one train step through them, on the card.
 
 Marked `cuda`; every test skips without a CUDA device (decided in the
 fixture, never at import). On a machine with an H100, nvcc and no JAX:
@@ -14,10 +15,14 @@ from robosimgs_tpu_torch.core.types import Gaussians
 from robosimgs_tpu_torch.render import rasterize
 from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
 from robosimgs_tpu_torch.render.config import RenderConfig
-from robosimgs_tpu_torch.render.kernels import (composite_fwd,
+from robosimgs_tpu_torch.render.kernels import (composite_bwd,
+                                                composite_bwd_plain,
+                                                composite_fwd,
                                                 composite_fwd_plain)
 from robosimgs_tpu_torch.render.project import project
 from robosimgs_tpu_torch.render.tiles import num_tiles
+from robosimgs_tpu_torch.train.data import Frame
+from robosimgs_tpu_torch.train.trainer import TrainConfig, Trainer
 
 pytestmark = pytest.mark.cuda
 
@@ -101,3 +106,61 @@ def test_rasterize_on_card_matches_cpu_reference(device):
         err = (out[k].cpu() - ref[k]).abs()
         assert float(err.max()) <= 2e-3, k      # at most one gate flip
         assert float((err > 1e-4).float().mean()) <= 1e-3, k
+
+
+def assert_bwd_agrees(got, want):
+    """Per row: at most 1e-4 of the slots off by more than 1e-4 + 1e-3
+    |plain| (a log-T gate flip against the plain version's cumsum order
+    moves one pixel's share of a slot)."""
+    for a, b in zip(got, want):
+        assert bool(torch.isfinite(a).all())
+        off = (a - b).abs() > 1e-4 + 1e-3 * b.abs()
+        assert float(off.float().mean(dim=(0, 2)).max()) <= 1e-4
+
+
+@pytest.mark.parametrize("absgrad", [False, True])
+def test_bwd_kernel_matches_plain_at_bench_config(device, absgrad):
+    cfg = RenderConfig(**{**CFG.__dict__, "absgrad": absgrad})
+    g, cam = _scene(device)
+    with torch.no_grad():
+        probe = torch.zeros((g.capacity, 2), device=device) if absgrad else None
+        geom, feat, counts, _ = bin_and_gather_packed(
+            project(g, cam, cfg, abs_probe=probe), cam.width, cam.height, cfg)
+    tiles_x, _ = num_tiles(cam.width, cam.height, cfg.tile_size)
+    kw = dict(tiles_x=tiles_x, cfg=cfg, has_dlim=False)
+    out, tfin, nblk = composite_fwd(geom, feat, counts, None, **kw)
+    gout = torch.randn(out.shape, generator=torch.Generator().manual_seed(4))
+    gout = gout.to(device)
+    before = composite_bwd.launches
+    got = composite_bwd(geom, feat, counts, None, gout, tfin, nblk, **kw)
+    torch.cuda.synchronize()
+    assert composite_bwd.launches == before + 1
+    assert_bwd_agrees(got, composite_bwd_plain(geom, feat, counts, None, gout,
+                                               tfin, nblk, **kw))
+
+
+def test_train_step_on_card_matches_cpu(device):
+    """One tiled Trainer step on the card launches each kernel once and
+    moves the Gaussians as the same step on the CPU (plain versions)."""
+    g, cam = _scene(device, n=1500, w=64, h=48)
+    target = torch.rand((48, 64, 3), generator=torch.Generator().manual_seed(5))
+    cfg = TrainConfig(render=RenderConfig(tile_capacity=512), impl="tiled",
+                      densify_from=10_000, log_every=1)
+    runs = {}
+    for dev in ("cpu", "cuda"):
+        tr = Trainer(cfg, g.to(dev), [Frame(camera=cam.to(dev),
+                                            image=target.numpy())])
+        f0, b0 = composite_fwd.launches, composite_bwd.launches
+        tr.run(iterations=1, progress=False)
+        runs[dev] = (tr.state.gaussians.means.cpu(),
+                     composite_fwd.launches - f0,
+                     composite_bwd.launches - b0, tr.history[0])
+    means_cpu, f_cpu, b_cpu, _ = runs["cpu"]
+    means_gpu, f_gpu, b_gpu, m = runs["cuda"]
+    assert (f_cpu, b_cpu) == (0, 0) and (f_gpu, b_gpu) == (1, 1)
+    assert m["overflow"] == 0
+    # Adam's first step moves each coordinate by lr(0) = 1.6e-4 times the
+    # sign of its gradient: equal wherever that sign is not f32 noise
+    diff = (means_gpu - means_cpu).abs()
+    assert float(diff.max()) <= 3.3e-4
+    assert float((diff > 1e-6).float().mean()) <= 1e-3

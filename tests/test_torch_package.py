@@ -29,3 +29,11 @@ def test_port_imports_no_jax_and_no_jax_package():
            for mod, line in _imported_roots(ast.parse(f.read_text()))
            if mod in FORBIDDEN]
     assert not bad, bad
+
+
+def test_chip_smoke_imports_no_jax():
+    script = Path(robosimgs_tpu_torch.__file__).parents[1] / "chip_smoke.py"
+    bad = [f"chip_smoke.py:{line} imports {mod}"
+           for mod, line in _imported_roots(ast.parse(script.read_text()))
+           if mod in FORBIDDEN]
+    assert not bad, bad

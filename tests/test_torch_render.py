@@ -2,7 +2,7 @@
 tensors against the JAX package's tiled path (Pallas kernel in interpret
 mode) and its reference compositor; PLY interchange; the render CLI."""
 
-import os
+import json
 
 import jax
 import jax.numpy as jnp
@@ -153,6 +153,18 @@ def test_cli_render_cpu(tmp_path):
     for i in range(2):
         img = np.asarray(Image.open(out_dir / f"orbit_{i:04d}.png"))
         assert img.shape == (32, 40, 3) and img.max() > 0
-    with pytest.raises(SystemExit, match="not ported"):
-        cli_render.main([scene, "--output", str(out_dir), "--transforms",
-                         os.devnull, "--device", "cpu"])
+    # --transforms: the cameras of a transforms.json (OpenGL c2w at
+    # y = -4 looking along +y at the scene)
+    c2w = np.eye(4)
+    c2w[:3, :3] = [[1, 0, 0], [0, 0, -1], [0, 1, 0]]
+    c2w[:3, 3] = [0.0, -4.0, 0.3]
+    (tmp_path / "transforms.json").write_text(json.dumps({
+        "fl_x": 35.0, "fl_y": 35.0, "cx": 20.0, "cy": 16.0, "w": 40, "h": 32,
+        "frames": [{"transform_matrix": c2w.tolist()}]}))
+    cli_render.main([scene, "--output", str(out_dir), "--transforms",
+                     str(tmp_path / "transforms.json"), "--device", "cpu",
+                     "--background", "0", "0", "0"])
+    img = np.asarray(Image.open(out_dir / "view_0000.png"))
+    assert img.shape == (32, 40, 3) and img.max() > 0
+    with pytest.raises(SystemExit, match="required"):
+        cli_render.main([scene, "--output", str(out_dir), "--device", "cpu"])
