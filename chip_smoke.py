@@ -11,10 +11,14 @@ Phases, each of which raises on a fault (nothing is caught):
                bench workload (100k Gaussians, SH 3, 256x256, K=384,
                M=10, bbox 12, two-tier 4/0.15): without a depth limit,
                with a random one over a 2-camera batch, and (backward)
-               with absgrad; the backward on the forward kernel's
-               residuals, with the count of pixels whose weight gate a
-               linear T (the forward's) and a log T (the backward's)
-               decide differently
+               with absgrad; both on a saturated stack (256 near-opaque
+               splats on one corner of four tiles) and on a sparse view
+               (60 splats over 256x256), where the backward skips work;
+               the forward on 32x32 tiles (its 1024-thread instance);
+               the backward on the forward kernel's residuals, with the
+               count of pixels whose weight gate a linear T (the
+               forward's) and a log T (the backward's) decide
+               differently
   4. main    — rasterize(impl="tiled") at that width through the forward
                kernel: zero truncation, finite, >= 60 dB against the
                lossless K=5120 render, a small scene against the CPU
@@ -30,7 +34,9 @@ Phases, each of which raises on a fault (nothing is caught):
                cameras, 256x256, one densify round and a pool resize at
                step 500): PSNR rises, scene.ply renders through the CLI
   6. times   — kernels, plain versions (CUDA events) and their bounds
-               from this run's shapes and counts; the render and the
+               from this run's shapes and counts (the backward's counts
+               only the pairs a pixel enters unsaturated); the render and
+               the
                train step (CUDA events and host wall), the train step's
                device idle share and top kernels (profiler), and its
                Gaussians/s (bench.py's metric, here on the card)
@@ -41,6 +47,7 @@ Exits non-zero without a CUDA device.
 from __future__ import annotations
 
 import json
+import math
 import os
 import struct
 import subprocess
@@ -62,9 +69,11 @@ FLOPS_EVAL_DLIM = 1
 FLOPS_KEPT = 5
 # each kept pair that passes the weight gate: alpha * T, 8 channel FMAs
 FLOPS_WEIGHTED = 17
-# the backward, per pair: each evaluated pair the forward's alpha test
-# (FLOPS_EVAL); each kept pair log1p, the log-T step, exp, 1 - alpha,
-# the gate (2) and the suffix term suffix / (1 - alpha) (2)
+# the backward, per pair that its pixel enters with T >= t_min (from the
+# first pair past that point a pixel adds 0: every later gate is false
+# and the suffix is 0): the forward's alpha test (FLOPS_EVAL); each such
+# kept pair log1p, the log-T step, exp, 1 - alpha, the gate (2) and the
+# suffix term suffix / (1 - alpha) (2)
 BWD_FLOPS_KEPT = 8
 # each weighted pair: gamma (8 FMAs, 16), w and gamma * T and dL/dalpha
 # (6), dq and the suffix update (4), the screen terms a dx + b dy and
@@ -72,7 +81,6 @@ BWD_FLOPS_KEPT = 8
 # (8), and the 14 sums over the tile's pixels (14)
 BWD_FLOPS_WEIGHTED = 66
 BK = 128
-N_GAUSSIANS = 100_000
 N_TRAIN_STEPS = 20
 
 
@@ -89,8 +97,15 @@ def psnr(a, b) -> float:
 
 def compare_fwd(got, want, tag):
     """nblk equal; out >= 60 dB with <= 1e-4 of channels off by > 1e-4;
-    log-T within 1e-3 where above -20. Returns (max |out err|, flips)."""
-    (out, tfin, nblk), (rout, rtfin, rnblk) = got, want
+    log-T within 1e-3 where above -20; log_t_groups (its groups of the
+    processed blocks, where above -20) with <= 1e-4 of its entries off by
+    > 1e-3 (a pair whose alpha sits at the 1/255 cutoff can be kept on one
+    side only: log1p(-1/255) = -3.9e-3 on the group ends after it, on
+    pixels whose final log-T may be below -20). Returns (max |out err|,
+    flips)."""
+    import torch
+    from robosimgs_tpu_torch.render.kernels import LT_GROUP
+    (out, tfin, nblk, ltg), (rout, rtfin, rnblk, rltg) = got, want
     n_diff = int((nblk != rnblk).sum())
     if n_diff:
         raise AssertionError(f"{tag}: nblk differs on {n_diff} tiles")
@@ -99,13 +114,22 @@ def compare_fwd(got, want, tag):
     frac = float(off.float().mean())
     flips = int(off.any(dim=1).sum())      # pixels with any channel off
     db = psnr(out, rout)
-    live = rtfin > -20
-    lt_err = float((tfin - rtfin).abs()[live].max()) if bool(live.any()) else 0.0
+    lt_err = ltg_err = ltg_frac = 0.0
+    if bool((rtfin > -20).any()):
+        lt_err = float((tfin - rtfin).abs()[rtfin > -20].max())
+    done = (torch.arange(ltg.shape[1], device=ltg.device)[None, :]
+            < rnblk[:, None].long() * (BK // LT_GROUP))[:, :, None]
+    live = done & (rltg > -20)
+    if bool(live.any()):
+        ltg_dev = (ltg - rltg).abs()[live]
+        ltg_err = float(ltg_dev.max())
+        ltg_frac = float((ltg_dev > 1e-3).float().mean())
     max_err = float(err.max())
     log(f"  {tag}: max|out err| {max_err:.3e}  psnr {db:.1f} dB  "
         f"off>1e-4 {frac:.2e} ({flips} pixels)  max|logT err| {lt_err:.3e}  "
+        f"log_t_groups max|err| {ltg_err:.3e}, off>1e-3 {ltg_frac:.2e}  "
         f"nblk equal on {nblk.numel()} tiles")
-    if db < 60.0 or frac > 1e-4 or lt_err > 1e-3:
+    if db < 60.0 or frac > 1e-4 or lt_err > 1e-3 or ltg_frac > 1e-4:
         raise AssertionError(f"{tag}: kernel disagrees with the plain version")
     return max_err, flips
 
@@ -164,16 +188,20 @@ def gate_flips(geom, counts, nblk, dlim, tiles_x, cfg, n_tiles_per_image=0):
 
 
 def pair_work(geom, counts, nblk, dlim, tiles_x, cfg):
-    """(evaluated, kept, weighted) (pixel, splat) pair counts of the
-    kernel's run on these inputs: slots of the processed blocks, those of
-    them with alpha > 0, and those of them that pass the weight gate."""
+    """(pixel, splat) pair counts of the kernels' run on these inputs, over
+    the slots of the processed blocks: (evaluated, kept, weighted, live,
+    live_kept). kept: alpha > 0; weighted: kept and through the weight
+    gate; live: the pixel enters the splat with T >= transmittance_min
+    (log T from a cumsum over the slots), the only pairs the backward
+    needs; live_kept: live and kept."""
     import torch
     from robosimgs_tpu_torch.render.gathered import (tile_alpha,
                                                      tile_pixel_coords)
     T, _, K = geom.shape
     P = cfg.tile_size ** 2
+    lt_min = math.log(cfg.transmittance_min)
     slots = torch.minimum(nblk.long() * BK, counts.long().clamp(0, K))
-    kept = weighted = 0
+    kept = weighted = live = live_kept = 0
     for s in range(0, T, 64):
         e = min(s + 64, T)
         px, py = tile_pixel_coords(torch.arange(s, e, device=geom.device),
@@ -183,12 +211,15 @@ def pair_work(geom, counts, nblk, dlim, tiles_x, cfg):
         alpha = tile_alpha(geom[s:e], px, py, in_count, cfg,
                            None if dlim is None else dlim[s:e, :, 0])
         lg = torch.log1p(-alpha)
-        tk = torch.exp(torch.cumsum(lg, dim=2) - lg)
+        lt_in = torch.cumsum(lg, dim=2) - lg       # log T entering the splat
         keep = alpha > 0
+        alive = (lt_in >= lt_min) & in_count[:, None, :]
         kept += int(keep.sum())
-        weighted += int((keep & (tk * (1.0 - alpha)
+        weighted += int((keep & (torch.exp(lt_in) * (1.0 - alpha)
                                  >= cfg.transmittance_min)).sum())
-    return int(slots.sum()) * P, kept, weighted
+        live += int(alive.sum())
+        live_kept += int((alive & keep).sum())
+    return int(slots.sum()) * P, kept, weighted, live, live_kept
 
 
 def read_png_rgb(path):
@@ -209,21 +240,6 @@ def read_png_rgb(path):
     return raw[:, 1:].reshape(h, w, 3)
 
 
-def time_ms(fn, reps: int, warmup: int = 3) -> float:
-    import torch
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    stop = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        fn()
-    stop.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(stop) / reps
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -239,7 +255,7 @@ def main() -> int:
     from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
     from robosimgs_tpu_torch.render.config import RenderConfig
     from robosimgs_tpu_torch.cli import train as cli_train
-    from robosimgs_tpu_torch.render.kernels import (composite_bwd,
+    from robosimgs_tpu_torch.render.kernels import (LT_GROUP, composite_bwd,
                                                     composite_bwd_plain,
                                                     composite_fwd,
                                                     composite_fwd_plain)
@@ -251,6 +267,9 @@ def main() -> int:
     from robosimgs_tpu_torch.train.losses import photometric_loss
     from robosimgs_tpu_torch.train.trainer import (TrainConfig, Trainer,
                                                    make_train_step)
+    from robosimgs_tpu_torch.tools.workloads import (BENCH_GAUSSIANS,
+                                                     bench_scene, orbit_views,
+                                                     saturated_scene, time_ms)
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -275,14 +294,8 @@ def main() -> int:
     log(f"  both built in {time.perf_counter() - t_build:.1f} s")
 
     # 3. kernel against plain on the card, bench workload
-    res = 256
-    cfg = RenderConfig(tile_capacity=384, max_tiles_per_gaussian=10,
-                       bbox_tiles_per_gaussian=12, two_tier_split=4,
-                       two_tier_spill_frac=0.15)
-    g = Gaussians.random(torch.Generator().manual_seed(0), N_GAUSSIANS,
-                         sh_degree=3, extent=1.5, device=dev)
-    cam = Camera.look_at([4.0, 0.5, 1.2], [0, 0, 0], [0, 0, 1], 60.0,
-                         res, res, device=dev)
+    g, cam, cfg = bench_scene(dev)
+    res = cam.width
     cam2 = Camera.look_at([-3.0, 2.5, 1.0], [0, 0, 0], [0, 0, 1], 60.0,
                           res, res, device=dev)
     tiles_x, _ = num_tiles(res, res, cfg.tile_size)
@@ -323,16 +336,16 @@ def main() -> int:
                            .manual_seed(seed)).to(dev)
 
     gout = gout_like(fwd[0], 3)
-    bwd = composite_bwd(geom, feat, counts, None, gout, fwd[1], fwd[2], **kw)
+    bwd = composite_bwd(geom, feat, counts, None, gout, *fwd[1:], **kw)
     torch.cuda.synchronize()
     err_bwd = compare_bwd(bwd, composite_bwd_plain(
-        geom, feat, counts, None, gout, fwd[1], fwd[2], **kw), "bwd no dlim")
+        geom, feat, counts, None, gout, *fwd[1:], **kw), "bwd no dlim")
     gout_b = gout_like(got_b[0], 4)
-    got_bb = composite_bwd(geom_b, feat_b, counts_b, dlim, gout_b, got_b[1],
-                           got_b[2], **kw_b)
+    got_bb = composite_bwd(geom_b, feat_b, counts_b, dlim, gout_b, *got_b[1:],
+                           **kw_b)
     torch.cuda.synchronize()
     err_bwd = max(err_bwd, compare_bwd(got_bb, composite_bwd_plain(
-        geom_b, feat_b, counts_b, dlim, gout_b, got_b[1], got_b[2], **kw_b),
+        geom_b, feat_b, counts_b, dlim, gout_b, *got_b[1:], **kw_b),
         "bwd dlim + 2 images"))
     cfg_abs = RenderConfig(**{**cfg.__dict__, "absgrad": True})
     with torch.no_grad():
@@ -343,14 +356,59 @@ def main() -> int:
     kw_a = dict(tiles_x=tiles_x, cfg=cfg_abs, has_dlim=False)
     fwd_a = composite_fwd(geom_a, feat_a, counts_a, None, **kw_a)
     gout_a = gout_like(fwd_a[0], 5)
-    got_ba = composite_bwd(geom_a, feat_a, counts_a, None, gout_a, fwd_a[1],
-                           fwd_a[2], **kw_a)
+    got_ba = composite_bwd(geom_a, feat_a, counts_a, None, gout_a, *fwd_a[1:],
+                           **kw_a)
     torch.cuda.synchronize()
     err_bwd = max(err_bwd, compare_bwd(got_ba, composite_bwd_plain(
-        geom_a, feat_a, counts_a, None, gout_a, fwd_a[1], fwd_a[2], **kw_a),
+        geom_a, feat_a, counts_a, None, gout_a, *fwd_a[1:], **kw_a),
         "bwd absgrad"))
     if float(got_ba[0][:, 7].max()) <= 0.0:
         raise AssertionError("absgrad rows are empty")
+    # 3c. where the kernels skip work: a saturated stack, a sparse view
+    err_skip = 0.0
+    for tag, (g_k, cam_k, cfg_k) in (
+            ("saturated stack", saturated_scene(dev)),
+            ("sparse view", (Gaussians.random(
+                torch.Generator().manual_seed(7), 60, sh_degree=3,
+                extent=1.5, device=dev), cam, cfg))):
+        with torch.no_grad():
+            geom_k, feat_k, counts_k, stats_k = bin_and_gather_packed(
+                project(g_k, cam_k, cfg_k), cam_k.width, cam_k.height, cfg_k)
+        if int(stats_k.truncated_gaussians) != 0:
+            raise AssertionError(f"{tag}: truncates")
+        kw_k = dict(tiles_x=num_tiles(cam_k.width, cam_k.height,
+                                      cfg_k.tile_size)[0],
+                    cfg=cfg_k, has_dlim=False)
+        fwd_k = composite_fwd(geom_k, feat_k, counts_k, None, **kw_k)
+        torch.cuda.synchronize()
+        log(f"  {tag}: T={geom_k.shape[0]} K={geom_k.shape[2]} counts max "
+            f"{int(counts_k.max())} nonzero {int((counts_k > 0).sum())}, "
+            f"nblk max {int(fwd_k[2].max())}")
+        err_skip = max(err_skip, compare_fwd(fwd_k, composite_fwd_plain(
+            geom_k, feat_k, counts_k, None, **kw_k), tag)[0])
+        gout_k = gout_like(fwd_k[0], 6)
+        bwd_k = composite_bwd(geom_k, feat_k, counts_k, None, gout_k,
+                              *fwd_k[1:], **kw_k)
+        torch.cuda.synchronize()
+        err_bwd = max(err_bwd, compare_bwd(bwd_k, composite_bwd_plain(
+            geom_k, feat_k, counts_k, None, gout_k, *fwd_k[1:], **kw_k),
+            f"bwd {tag}"))
+        if float(bwd_k[0][:, :6].abs().max()) <= 0.0:
+            raise AssertionError(f"{tag}: zero geometry gradients")
+    # 3d. the forward on 32x32 tiles (the JAX package's tile size for its
+    # 3M-Gaussian config): the kernel's 1024-thread instance
+    cfg_32 = RenderConfig(tile_size=32, tile_capacity=1024)
+    with torch.no_grad():
+        geom_32, feat_32, counts_32, _ = bin_and_gather_packed(
+            project(g, cam, cfg_32), res, res, cfg_32)
+    kw_32 = dict(tiles_x=num_tiles(res, res, 32)[0], cfg=cfg_32,
+                 has_dlim=False)
+    fwd_32 = composite_fwd(geom_32, feat_32, counts_32, None, **kw_32)
+    torch.cuda.synchronize()
+    log(f"  32x32 tiles: T={geom_32.shape[0]} K={geom_32.shape[2]} counts "
+        f"max {int(counts_32.max())}, nblk max {int(fwd_32[2].max())}")
+    err_skip = max(err_skip, compare_fwd(fwd_32, composite_fwd_plain(
+        geom_32, feat_32, counts_32, None, **kw_32), "32x32 tiles")[0])
     with torch.no_grad():
         gflip_a = gate_flips(geom, counts, fwd[2], None, tiles_x, cfg)
         gflip_b = gate_flips(geom_b, counts_b, got_b[2], dlim, tiles_x, cfg,
@@ -471,10 +529,8 @@ def main() -> int:
         raise AssertionError("the CLI did not render through the kernel")
     # the kernel against its plain version at the CLI's shapes: the same
     # scene, orbit cameras and default RenderConfig the CLI rendered with
-    cfg_cli = RenderConfig()
     err_cli = 0.0
-    for i, cam_o in enumerate(cli_render.orbit_cameras(g_cli, 2, 60.0, 640,
-                                                       480, device=dev)):
+    for i, (cam_o, cfg_cli) in enumerate(orbit_views(g_cli, dev)):
         tx, ty = num_tiles(640, 480, cfg_cli.tile_size)
         with torch.no_grad():
             geom_o, feat_o, counts_o, stats_o = bin_and_gather_packed(
@@ -491,11 +547,11 @@ def main() -> int:
         err_cli = max(err_cli, e_o)
         gout_o = gout_like(got_o[0], 10 + i)
         bwd_o = composite_bwd(geom_o, feat_o, counts_o, None, gout_o,
-                              got_o[1], got_o[2], **kw_o)
+                              *got_o[1:], **kw_o)
         torch.cuda.synchronize()
         err_bwd = max(err_bwd, compare_bwd(bwd_o, composite_bwd_plain(
-            geom_o, feat_o, counts_o, None, gout_o, got_o[1], got_o[2],
-            **kw_o), f"bwd orbit {i} 640x480"))
+            geom_o, feat_o, counts_o, None, gout_o, *got_o[1:], **kw_o),
+            f"bwd orbit {i} 640x480"))
         with torch.no_grad():
             flips_o = gate_flips(geom_o, counts_o, got_o[2], None, tx, cfg_cli)
         log(f"  orbit {i}: forward/backward gate disagreements {flips_o}")
@@ -544,18 +600,22 @@ def main() -> int:
                             reps=50)
     with torch.no_grad():
         bwd_ms = time_ms(lambda: composite_bwd(geom, feat, counts, None, gout,
-                                               fwd[1], fwd[2], **kw), reps=200)
+                                               *fwd[1:], **kw), reps=200)
         bwd_plain_ms = time_ms(lambda: composite_bwd_plain(
-            geom, feat, counts, None, gout, fwd[1], fwd[2], **kw), reps=10)
+            geom, feat, counts, None, gout, *fwd[1:], **kw), reps=10)
     nblk = fwd[2]
     with torch.no_grad():
-        pairs, kept, weighted = pair_work(geom, counts, nblk, None, tiles_x,
-                                          cfg)
+        pairs, kept, weighted, live, live_kept = pair_work(
+            geom, counts, nblk, None, tiles_x, cfg)
     n_slots = pairs // P
-    T = geom.shape[0]
+    T, _, K = geom.shape
+    # log_t_groups entries of the processed blocks: the forward writes,
+    # and the backward reads, no others
+    n_ltg = int(nblk.sum()) * (BK // LT_GROUP) * P
     # bytes: counts, geom rows 0..5 (no depth row without a limit) and
-    # feat rows 0..7 of the evaluated slots, out (8 rows), log-T, nblk
-    nbytes = 4 * (T + 14 * n_slots + 8 * T * P + T * P + T)
+    # feat rows 0..7 of the evaluated slots, out (8 rows), log-T, nblk,
+    # log_t_groups
+    nbytes = 4 * (T + 14 * n_slots + 8 * T * P + T * P + T + n_ltg)
     flops = FLOPS_EVAL * pairs + FLOPS_KEPT * kept + FLOPS_WEIGHTED * weighted
     ops_ms = flops / PEAK_FP32_FLOPS * 1e3
     bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
@@ -569,20 +629,23 @@ def main() -> int:
         f"{weighted} weighted x {FLOPS_WEIGHTED}, {ops_ms:.6f} ms; {nbytes} B,"
         f" {bytes_ms:.6f} ms; blocks {int(nblk.sum())}), share "
         f"{bound_ms / kernel_ms:.4f} of the kernel's time; library call: none")
-    # the backward's bound: the same pairs; bytes: counts, nblk, geom
-    # rows 0..5 and feat rows 0..7 of the evaluated slots, gout (8 rows),
-    # log-T, and dgeom + dfeat (16 rows) of every slot
-    K = geom.shape[2]
-    bwd_flops = (FLOPS_EVAL * pairs + BWD_FLOPS_KEPT * kept
+    # the backward's bound: the pairs their pixels enter unsaturated (the
+    # forward must evaluate every pair of the processed blocks for its
+    # log-T residuals; the backward needs no others); bytes: counts, nblk,
+    # geom rows 0..5 and feat rows 0..7 of the evaluated slots, gout (8
+    # rows), log-T, log_t_groups, and dgeom + dfeat (16 rows) of every slot
+    bwd_flops = (FLOPS_EVAL * live + BWD_FLOPS_KEPT * live_kept
                  + BWD_FLOPS_WEIGHTED * weighted)
-    bwd_bytes = 4 * (2 * T + 14 * n_slots + 8 * T * P + T * P + 16 * T * K)
+    bwd_bytes = 4 * (2 * T + 14 * n_slots + 8 * T * P + T * P + n_ltg
+                     + 16 * T * K)
     bwd_ops_ms = bwd_flops / PEAK_FP32_FLOPS * 1e3
     bwd_bytes_ms = bwd_bytes / PEAK_BYTES_PER_S * 1e3
     bwd_bound_ms = max(bwd_ops_ms, bwd_bytes_ms)
     bwd_bound_by = "operations" if bwd_ops_ms >= bwd_bytes_ms else "bytes"
     log(f"  composite_bwd {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms; bound "
-        f"{bwd_bound_ms:.6f} ms ({bwd_bound_by}: {bwd_flops} flop = {pairs} "
-        f"evaluated x {FLOPS_EVAL} + {kept} kept x {BWD_FLOPS_KEPT} + "
+        f"{bwd_bound_ms:.6f} ms ({bwd_bound_by}: {bwd_flops} flop = {live} "
+        f"unsaturated pairs ({live / pairs:.4f} of the evaluated) x "
+        f"{FLOPS_EVAL} + {live_kept} of them kept x {BWD_FLOPS_KEPT} + "
         f"{weighted} weighted x {BWD_FLOPS_WEIGHTED}, {bwd_ops_ms:.6f} ms; "
         f"{bwd_bytes} B, {bwd_bytes_ms:.6f} ms), share "
         f"{bwd_bound_ms / bwd_ms:.4f} of the kernel's time; library call: none")
@@ -655,7 +718,7 @@ def main() -> int:
         f"wall {step_wall_ms:.4f} ms, device busy {step_dev_ms:.4f} ms "
         f"(profiler, {n_kern} kernels/step), idle share "
         f"{1 - step_dev_ms / step_wall_ms:.3f}; "
-        f"{N_GAUSSIANS / (step_wall_ms / 1e3):.1f} gaussians/s fwd+bwd+Adam")
+        f"{BENCH_GAUSSIANS / (step_wall_ms / 1e3):.1f} gaussians/s fwd+bwd+Adam")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3 / n_prof:8.4f} ms "
             f"x{e.count // n_prof:<4d} {e.key[:90]}")
@@ -666,7 +729,7 @@ def main() -> int:
         "source": "robosimgs_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "robosimgs_tpu/render/pallas_kernels.py:138",
         "launches": launches_train[0], "max_abs_err": max(err_a, err_b,
-                                                          err_cli),
+                                                          err_cli, err_skip),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None}, {
         "name": "composite_bwd", "route": "cuda",

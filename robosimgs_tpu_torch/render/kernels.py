@@ -5,20 +5,26 @@ _fwd_kernel (entry composite_fwd_pallas) with the hand-written CUDA
 kernel in csrc/composite_fwd.cu, with the same inputs and outputs:
 
   (T,8,K) geom/feat + (T,) counts + (T,P,1) depth limits ->
-  (out (T,8,P), log_t_final (T,P,1), nblk (T,) int32)
+  (out (T,8,P), log_t_final (T,P,1), nblk (T,) int32,
+   log_t_groups (T,K/16,P))
 
 `composite_bwd` replaces _bwd_kernel (entry composite_bwd_pallas) with
 csrc/composite_bwd.cu: one back-to-front sweep per tile from the
 forward's residuals,
 
-  forward inputs + gout (T,8,P) + log_t_final + nblk ->
+  forward inputs + gout (T,8,P) + log_t_final + nblk + log_t_groups ->
   (dgeom (T,8,K), dfeat (T,8,K))
 
 nblk counts the 128-splat blocks a tile processed before all of its
 pixels saturated, and log_t_final sums log1p(-alpha) over every kept
-splat of those blocks; the backward rebuilds each splat's transmittance
-from them in log space. `Composite` joins the pair into one autograd op
-(the counterpart of the JAX package's custom_vjp in render/tiled.py).
+splat of those blocks (the first three outputs are the Pallas kernel's).
+log_t_groups, which the Pallas pair does not have, holds each processed
+block's running sum at the end of every 16-slot group (the kernel leaves
+the entries past the processed blocks unwritten, the plain version 0);
+the backward rebuilds each splat's transmittance from these in log space
+without evaluating an alpha twice. `Composite` joins the pair into one
+autograd op (the counterpart of the JAX package's custom_vjp in
+render/tiled.py).
 
 What bounds both kernels on an H100: per evaluated (pixel, splat) pair
 about 17 FP32 operations (one of them an SFU exp), and per pair that
@@ -26,12 +32,19 @@ adds weight about 22 more in the forward (a log1p, 8 channel FMAs) and
 about 74 more in the backward (the gate, gamma's 8 FMAs, 14 products
 summed over the tile), against 64 B of geom/feat per splat shared by the tile's 256
 pixels — operations, by a wide margin. Both stage each splat block once
-into shared memory and keep every per-pixel value in registers; the
-csrc/ sources have the details.
+into shared memory by cp.async, one block ahead, and keep every
+per-pixel value in registers; the forward evaluates 8 alphas ahead of
+its serial transmittance update, and the backward evaluates each alpha
+once and skips, exactly, the slots no pixel of a warp keeps and the
+groups every pixel of a warp enters saturated. Not yet done: TMA
+staging, several tiles per block, tensor-core forms of the backward's
+sums over pixels; the csrc/ sources have the details.
 
 On a CPU tensor each wrapper runs its plain torch version
 (`composite_fwd_plain`, `composite_bwd_plain`); on a CUDA tensor it
-launches the kernel or raises.
+launches the kernel or raises. The forward kernel takes tiles of up to
+32x32 pixels, the backward kernel tiles of up to 256 pixels in whole
+warps (16x16, 8x8).
 """
 
 from __future__ import annotations
@@ -47,10 +60,13 @@ from robosimgs_tpu_torch.render.gathered import (tile_alpha, tile_alpha_parts,
 
 # splats per block: the unit of the early exit and of nblk (Pallas BK)
 BK = 128
+# slots per log_t_groups entry (csrc/composite_common.cuh LT_GROUP; each
+# kernel library reports its own, checked when it is loaded)
+LT_GROUP = 16
 # tiles per pass of the plain versions: bounds their (tiles, P, BK)
 # temporaries
 _PLAIN_TILE_CHUNK = 128
-# threads per block of the backward kernel (one per pixel of a tile)
+# pixels per tile the backward kernel takes (one thread each, whole warps)
 _BWD_MAX_PIXELS = 256
 
 
@@ -100,22 +116,35 @@ _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C signatures of csrc/*.cu's launch functions: tensors, the int
 # shapes, the 3 RenderConfig thresholds, (backward) absgrad, the stream
 _ARGTYPES = {
-    "composite_fwd": [_PTR] * 7 + [_I32] * 5 + [_F32] * 3 + [_PTR],
-    "composite_bwd": [_PTR] * 9 + [_I32] * 5 + [_F32] * 3 + [_I32, _PTR],
+    "composite_fwd": [_PTR] * 8 + [_I32] * 5 + [_F32] * 3 + [_PTR],
+    "composite_bwd": [_PTR] * 10 + [_I32] * 5 + [_F32] * 3 + [_I32, _PTR],
 }
 
 
 def _lib(name: str) -> ctypes.CDLL:
-    """The loaded library of csrc/<name>.cu, its functions typed."""
+    """The loaded library of csrc/<name>.cu, its functions typed, after
+    checking that it lays out log_t_groups as this module does."""
     lib = _build.load(name)
     fn = getattr(lib, f"{name}_launch")
     if fn.argtypes is None:
-        fn.argtypes = _ARGTYPES[name]
-        fn.restype = ctypes.c_int
+        lt_group = getattr(lib, f"{name}_lt_group")
+        lt_group.argtypes, lt_group.restype = [], ctypes.c_int
+        if lt_group() != LT_GROUP:
+            raise RuntimeError(f"{name} was built with {lt_group()} slots per "
+                               f"log_t_groups entry, this module has "
+                               f"{LT_GROUP}")
         err = getattr(lib, f"{name}_error_string")
         err.argtypes = [ctypes.c_int]
         err.restype = ctypes.c_char_p
+        fn.restype = ctypes.c_int
+        fn.argtypes = _ARGTYPES[name]
     return lib
+
+
+def _check_aligned(geom: torch.Tensor, feat: torch.Tensor, name: str) -> None:
+    """The kernels stage geom/feat 16 bytes a copy."""
+    if geom.data_ptr() % 16 or feat.data_ptr() % 16:
+        raise ValueError(f"{name} needs geom and feat 16-byte aligned")
 
 
 def _raise_on(lib: ctypes.CDLL, name: str, rc: int) -> None:
@@ -129,7 +158,8 @@ def composite_fwd(geom: torch.Tensor, feat: torch.Tensor,
                   tiles_x: int, cfg: RenderConfig, n_tiles_per_image: int = 0,
                   has_dlim: bool = True):
     """(T,8,K) geom/feat + (T,) int32 counts + (T,P,1) dlim ->
-    (out (T,8,P), log_t_final (T,P,1), nblk (T,) int32).
+    (out (T,8,P), log_t_final (T,P,1), nblk (T,) int32,
+    log_t_groups (T,K/16,P)).
 
     The CUDA kernel for CUDA tensors, `composite_fwd_plain` for CPU
     tensors. dlim may be None when has_dlim is False. n_tiles_per_image:
@@ -144,25 +174,29 @@ def composite_fwd(geom: torch.Tensor, feat: torch.Tensor,
                                    has_dlim=has_dlim)
     if geom.device.type != "cuda":
         raise ValueError(f"composite_fwd runs on cuda or cpu, not {geom.device}")
+    _check_aligned(geom, feat, "composite_fwd")
     T, _, K = geom.shape
     P = cfg.tile_size * cfg.tile_size
     out = torch.empty((T, 8, P), dtype=torch.float32, device=geom.device)
     log_t_final = torch.empty((T, P, 1), dtype=torch.float32, device=geom.device)
     nblk = torch.empty((T,), dtype=torch.int32, device=geom.device)
+    log_t_groups = torch.empty((T, K // LT_GROUP, P), dtype=torch.float32,
+                               device=geom.device)
     if T == 0:
-        return out, log_t_final, nblk
+        return out, log_t_final, nblk, log_t_groups
     lib = _lib("composite_fwd")
     stream = torch.cuda.current_stream(geom.device).cuda_stream
     with torch.cuda.device(geom.device):
         rc = lib.composite_fwd_launch(
             geom.data_ptr(), feat.data_ptr(), counts.data_ptr(),
             dlim.data_ptr() if has_dlim else None,
-            out.data_ptr(), log_t_final.data_ptr(), nblk.data_ptr(),
-            T, K, tiles_x, n_tiles_per_image or T, cfg.tile_size,
-            cfg.alpha_clamp, cfg.alpha_min, cfg.transmittance_min, stream)
+            out.data_ptr(), log_t_final.data_ptr(), log_t_groups.data_ptr(),
+            nblk.data_ptr(), T, K, tiles_x, n_tiles_per_image or T,
+            cfg.tile_size, cfg.alpha_clamp, cfg.alpha_min,
+            cfg.transmittance_min, stream)
     _raise_on(lib, "composite_fwd", rc)
     composite_fwd.launches += 1
-    return out, log_t_final, nblk
+    return out, log_t_final, nblk, log_t_groups
 
 
 composite_fwd.launches = 0
@@ -177,7 +211,9 @@ def composite_fwd_plain(geom: torch.Tensor, feat: torch.Tensor,
     cumsum of log1p(-alpha)); a tile stops before the first block where
     its count is exhausted or no pixel has T >= transmittance_min.
     log_t_final adds each block's sum once, the grouping
-    `composite_bwd_plain` takes back."""
+    `composite_bwd_plain` takes back; log_t_groups holds the inclusive
+    cumsum at each 16-slot group end of the processed blocks, 0 past
+    them."""
     T, _, K = geom.shape
     ts = cfg.tile_size
     P = ts * ts
@@ -187,6 +223,7 @@ def composite_fwd_plain(geom: torch.Tensor, feat: torch.Tensor,
     out = geom.new_zeros((T, 8, P))
     log_t_final = geom.new_zeros((T, P, 1))
     nblk = torch.zeros((T,), dtype=torch.int32, device=dev)
+    log_t_groups = geom.new_zeros((T, K // LT_GROUP, P))
     for s in range(0, T, _PLAIN_TILE_CHUNK):
         e = min(s + _PLAIN_TILE_CHUNK, T)
         px, py = tile_pixel_coords(t_img[s:e], tiles_x, ts)
@@ -215,53 +252,67 @@ def composite_fwd_plain(geom: torch.Tensor, feat: torch.Tensor,
                                     torch.zeros_like(acc))
             tc = torch.where(lv, tc * torch.exp(incl[:, :, -1]), tc)
             ltc = torch.where(lv, ltc + incl[:, :, -1], ltc)
+            ends = incl[:, :, LT_GROUP - 1::LT_GROUP].transpose(1, 2)
+            gs = slice(off // LT_GROUP, (off + BK) // LT_GROUP)
+            log_t_groups[s:e, gs] = torch.where(lv[:, :, None], ends, 0.0)
             nb = nb + live.to(torch.int32)
         out[s:e] = acc
         log_t_final[s:e, :, 0] = ltc
         nblk[s:e] = nb
-    return out, log_t_final, nblk
+    return out, log_t_final, nblk, log_t_groups
 
 
-def _check_bwd_inputs(geom, feat, counts, dlim, gout, log_t_final, nblk, cfg,
-                      has_dlim):
+def _check_bwd_inputs(geom, feat, counts, dlim, gout, log_t_final, nblk,
+                      log_t_groups, cfg, has_dlim):
     _check_inputs(geom, feat, counts, dlim, cfg, has_dlim)
-    T = geom.shape[0]
+    T, _, K = geom.shape
     P = cfg.tile_size * cfg.tile_size
     dev = geom.device
     _check(gout, "gout", (T, 8, P), torch.float32, dev)
     _check(log_t_final, "log_t_final", (T, P, 1), torch.float32, dev)
     _check(nblk, "nblk", (T,), torch.int32, dev)
+    if log_t_groups is not None:
+        _check(log_t_groups, "log_t_groups", (T, K // LT_GROUP, P),
+               torch.float32, dev)
 
 
 def composite_bwd(geom: torch.Tensor, feat: torch.Tensor,
                   counts: torch.Tensor, dlim: torch.Tensor | None,
                   gout: torch.Tensor, log_t_final: torch.Tensor,
-                  nblk: torch.Tensor, *, tiles_x: int, cfg: RenderConfig,
-                  n_tiles_per_image: int = 0, has_dlim: bool = True):
+                  nblk: torch.Tensor, log_t_groups: torch.Tensor | None, *,
+                  tiles_x: int, cfg: RenderConfig, n_tiles_per_image: int = 0,
+                  has_dlim: bool = True):
     """The backward of `composite_fwd`: its inputs, the cotangent gout
-    (T,8,P) of its output and its residuals (log_t_final, nblk) ->
-    (dgeom (T,8,K), dfeat (T,8,K)).
+    (T,8,P) of its output and its residuals (log_t_final, nblk,
+    log_t_groups) -> (dgeom (T,8,K), dfeat (T,8,K)).
 
     dgeom rows: d mx, d my, d conic a/b/c, d opacity, 0 (depth is not
     differentiated), and with cfg.absgrad the summed |d mx| per pixel;
     dfeat: gout . w per channel, row 7 the summed |d my| under absgrad.
     Slots outside the processed blocks are 0. The CUDA kernel for CUDA
-    tensors, `composite_bwd_plain` for CPU tensors;
-    `composite_bwd.launches` counts kernel launches."""
-    _check_bwd_inputs(geom, feat, counts, dlim, gout, log_t_final, nblk, cfg,
-                      has_dlim)
+    tensors, which needs log_t_groups; `composite_bwd_plain` for CPU
+    tensors, where log_t_groups may be None (residuals of a forward that
+    has none, such as the Pallas kernel's). `composite_bwd.launches`
+    counts kernel launches."""
+    _check_bwd_inputs(geom, feat, counts, dlim, gout, log_t_final, nblk,
+                      log_t_groups, cfg, has_dlim)
     if geom.device.type == "cpu":
         return composite_bwd_plain(geom, feat, counts, dlim, gout,
-                                   log_t_final, nblk, tiles_x=tiles_x,
-                                   cfg=cfg, n_tiles_per_image=n_tiles_per_image,
+                                   log_t_final, nblk, log_t_groups,
+                                   tiles_x=tiles_x, cfg=cfg,
+                                   n_tiles_per_image=n_tiles_per_image,
                                    has_dlim=has_dlim)
     if geom.device.type != "cuda":
         raise ValueError(f"composite_bwd runs on cuda or cpu, not {geom.device}")
-    T, _, K = geom.shape
+    if log_t_groups is None:
+        raise ValueError("composite_bwd on the card needs the forward's "
+                         "log_t_groups")
+    _check_aligned(geom, feat, "composite_bwd")
     P = cfg.tile_size * cfg.tile_size
     if P % 32 or P > _BWD_MAX_PIXELS:
         raise ValueError(f"composite_bwd needs tile_size**2 a multiple of 32 "
                          f"and at most {_BWD_MAX_PIXELS}, got {P}")
+    T, _, K = geom.shape
     dgeom = torch.empty((T, 8, K), dtype=torch.float32, device=geom.device)
     dfeat = torch.empty((T, 8, K), dtype=torch.float32, device=geom.device)
     if T == 0:
@@ -272,8 +323,8 @@ def composite_bwd(geom: torch.Tensor, feat: torch.Tensor,
         rc = lib.composite_bwd_launch(
             geom.data_ptr(), feat.data_ptr(), counts.data_ptr(),
             dlim.data_ptr() if has_dlim else None, gout.data_ptr(),
-            log_t_final.data_ptr(), nblk.data_ptr(), dgeom.data_ptr(),
-            dfeat.data_ptr(), T, K, tiles_x, n_tiles_per_image or T,
+            log_t_final.data_ptr(), log_t_groups.data_ptr(), nblk.data_ptr(),
+            dgeom.data_ptr(), dfeat.data_ptr(), T, K, tiles_x, n_tiles_per_image or T,
             cfg.tile_size, cfg.alpha_clamp, cfg.alpha_min,
             cfg.transmittance_min, int(cfg.absgrad), stream)
     _raise_on(lib, "composite_bwd", rc)
@@ -287,14 +338,18 @@ composite_bwd.launches = 0
 def composite_bwd_plain(geom: torch.Tensor, feat: torch.Tensor,
                         counts: torch.Tensor, dlim: torch.Tensor | None,
                         gout: torch.Tensor, log_t_final: torch.Tensor,
-                        nblk: torch.Tensor, *, tiles_x: int, cfg: RenderConfig,
+                        nblk: torch.Tensor, log_t_groups: torch.Tensor | None,
+                        *, tiles_x: int, cfg: RenderConfig,
                         n_tiles_per_image: int = 0, has_dlim: bool = True):
     """`composite_bwd` in plain torch, block by block like the Pallas
     kernel: the processed blocks in reverse; in each, inclusive cumsums
     of log1p(-alpha) and of gamma * w. The log-T entering a block is the
     carried log-T minus the block's sum, which the forward added once, so
     saturated pixels, whose log T sits near -350, keep their front
-    splats' transmittance."""
+    splats' transmittance. The block's sum is the forward's own, its
+    last log_t_groups entry, where log_t_groups is given, else the cumsum
+    recomputed here (the same number when the plain forward made the
+    residuals)."""
     T, _, K = geom.shape
     ts = cfg.tile_size
     P = ts * ts
@@ -324,7 +379,9 @@ def composite_bwd_plain(geom: torch.Tensor, feat: torch.Tensor,
             om = 1.0 - alpha
             lg = torch.log1p(-alpha)
             incl = torch.cumsum(lg, dim=2)
-            lin = lte - incl[:, :, -1]                   # log T entering
+            block_sum = (incl[:, :, -1] if log_t_groups is None else
+                         log_t_groups[s:e, (off + BK) // LT_GROUP - 1])
+            lin = lte - block_sum                        # log T entering
             Tk = torch.exp(lin[:, :, None] + (incl - lg))
             m = Tk * om >= t_min
             w = alpha * Tk * m
@@ -361,7 +418,7 @@ class Composite(torch.autograd.Function):
     """`composite_fwd` with `composite_bwd` as its backward: (geom, feat)
     -> out (T,8,P), differentiable in geom and feat; counts and dlim get
     no gradient. The forward saves (geom, feat, counts, dlim,
-    log_t_final, nblk) for the backward.
+    log_t_final, nblk, log_t_groups) for the backward.
 
         out = Composite.apply(geom, feat, counts, dlim, tiles_x, cfg,
                               n_tiles_per_image, has_dlim)
@@ -372,15 +429,18 @@ class Composite(torch.autograd.Function):
                 n_tiles_per_image: int = 0, has_dlim: bool = True):
         kw = dict(tiles_x=tiles_x, cfg=cfg,
                   n_tiles_per_image=n_tiles_per_image, has_dlim=has_dlim)
-        out, log_t_final, nblk = composite_fwd(geom, feat, counts, dlim, **kw)
-        ctx.save_for_backward(geom, feat, counts, dlim, log_t_final, nblk)
+        out, log_t_final, nblk, log_t_groups = composite_fwd(
+            geom, feat, counts, dlim, **kw)
+        ctx.save_for_backward(geom, feat, counts, dlim, log_t_final, nblk,
+                              log_t_groups)
         ctx.kw = kw
         return out
 
     @staticmethod
     def backward(ctx, gout):
-        geom, feat, counts, dlim, log_t_final, nblk = ctx.saved_tensors
+        geom, feat, counts, dlim, log_t_final, nblk, log_t_groups = \
+            ctx.saved_tensors
         dgeom, dfeat = composite_bwd(geom, feat, counts, dlim,
                                      gout.contiguous(), log_t_final, nblk,
-                                     **ctx.kw)
+                                     log_t_groups, **ctx.kw)
         return dgeom, dfeat, None, None, None, None, None, None

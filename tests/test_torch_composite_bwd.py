@@ -23,6 +23,7 @@ from robosimgs_tpu.render.project import project as jproject
 from robosimgs_tpu_torch.render.config import RenderConfig
 from robosimgs_tpu_torch.render.gathered import composite_gathered
 from robosimgs_tpu_torch.render.kernels import (Composite, composite_bwd,
+                                                composite_bwd_plain,
                                                 composite_fwd)
 from test_torch_composite import COUNTS, P, TILES_X, make_inputs
 
@@ -78,8 +79,9 @@ def run_both(geom, feat, counts, tiles_x, kw, dlim=None, n_img=0, seed=0):
     _, tfin, nblk = composite_fwd_pallas(*args, **opts)
     jd = composite_bwd_pallas(*args, j(gout), tfin, nblk, **opts)
     t = torch.from_numpy
+    # the Pallas forward has no log_t_groups: the plain version takes None
     d = composite_bwd(t(geom), t(feat), t(counts), t(dlim) if has_dlim else None,
-                      t(gout), t(np.array(tfin)), t(np.array(nblk)),
+                      t(gout), t(np.array(tfin)), t(np.array(nblk)), None,
                       tiles_x=tiles_x, cfg=RenderConfig(**kw),
                       n_tiles_per_image=n_img, has_dlim=has_dlim)
     return tuple(np.asarray(x) for x in jd), tuple(x.numpy() for x in d), \
@@ -210,15 +212,50 @@ def test_composite_autograd_matches_gathered_autograd(has_dlim):
 def test_composite_bwd_rejects_bad_inputs():
     geom, feat, counts, dlim = make_inputs([3] * 6, 128)
     t = torch.from_numpy
-    out, tfin, nblk = composite_fwd(t(geom), t(feat), t(counts), t(dlim),
-                                    tiles_x=TILES_X, cfg=RenderConfig())
+    out, tfin, nblk, ltg = composite_fwd(t(geom), t(feat), t(counts), t(dlim),
+                                         tiles_x=TILES_X, cfg=RenderConfig())
     kw = dict(tiles_x=TILES_X, cfg=RenderConfig())
     with pytest.raises(ValueError, match="gout"):
         composite_bwd(t(geom), t(feat), t(counts), t(dlim), out[:, :4], tfin,
-                      nblk, **kw)
+                      nblk, ltg, **kw)
     with pytest.raises(ValueError, match="nblk"):
         composite_bwd(t(geom), t(feat), t(counts), t(dlim), out, tfin,
-                      nblk.long(), **kw)
+                      nblk.long(), ltg, **kw)
     with pytest.raises(ValueError, match="log_t_final"):
         composite_bwd(t(geom), t(feat), t(counts), t(dlim), out, tfin[:, :, 0],
-                      nblk, **kw)
+                      nblk, ltg, **kw)
+
+
+@pytest.mark.parametrize("bad", ["shape", "dtype", "layout"])
+def test_composite_bwd_rejects_bad_log_t_groups(bad):
+    geom, feat, counts, dlim = make_inputs([3] * 6, 256)
+    t = torch.from_numpy
+    out, tfin, nblk, ltg = composite_fwd(t(geom), t(feat), t(counts), t(dlim),
+                                         tiles_x=TILES_X, cfg=RenderConfig())
+    ltg = {"shape": ltg[:, :4], "dtype": ltg.double(),
+           "layout": ltg.transpose(1, 2).contiguous().transpose(1, 2)}[bad]
+    with pytest.raises(ValueError, match="log_t_groups|contiguous"):
+        composite_bwd(t(geom), t(feat), t(counts), t(dlim), out, tfin, nblk,
+                      ltg, tiles_x=TILES_X, cfg=RenderConfig())
+
+
+@pytest.mark.parametrize("has_dlim", [False, True])
+def test_composite_bwd_plain_with_log_t_groups_equals_without(has_dlim):
+    """The plain backward takes each block's sum from log_t_groups where
+    it is given: from the plain forward's residuals, the same numbers it
+    recomputes without them, saturated tiles included."""
+    geom, feat, counts, dlim = make_inputs([320, 384, 100, 0, 300, 200], 384,
+                                           seed=7, saturate=(0, 4))
+    t = torch.from_numpy
+    dl = t(dlim) if has_dlim else None
+    kw = dict(tiles_x=TILES_X, cfg=RenderConfig(), has_dlim=has_dlim)
+    out, tfin, nblk, ltg = composite_fwd(t(geom), t(feat), t(counts), dl, **kw)
+    assert (nblk >= 2).any() and (nblk == 1).any()
+    gout = torch.from_numpy(np.random.default_rng(7).normal(
+        size=tuple(out.shape)).astype(np.float32))
+    args = (t(geom), t(feat), t(counts), dl, gout, tfin, nblk)
+    with_ltg = composite_bwd_plain(*args, ltg, **kw)
+    without = composite_bwd_plain(*args, None, **kw)
+    for a, b in zip(with_ltg, without):
+        np.testing.assert_array_equal(a.numpy(), b.numpy())
+    assert float(with_ltg[0][:, :6].abs().max()) > 1e-3

@@ -15,20 +15,19 @@ from robosimgs_tpu_torch.core.types import Gaussians
 from robosimgs_tpu_torch.render import rasterize
 from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
 from robosimgs_tpu_torch.render.config import RenderConfig
-from robosimgs_tpu_torch.render.kernels import (composite_bwd,
+from robosimgs_tpu_torch.render.kernels import (BK, LT_GROUP, composite_bwd,
                                                 composite_bwd_plain,
                                                 composite_fwd,
                                                 composite_fwd_plain)
 from robosimgs_tpu_torch.render.project import project
 from robosimgs_tpu_torch.render.tiles import num_tiles
+from robosimgs_tpu_torch.tools.workloads import bench_config, saturated_scene
 from robosimgs_tpu_torch.train.data import Frame
 from robosimgs_tpu_torch.train.trainer import TrainConfig, Trainer
 
 pytestmark = pytest.mark.cuda
 
-CFG = RenderConfig(tile_capacity=384, max_tiles_per_gaussian=10,
-                   bbox_tiles_per_gaussian=12, two_tier_split=4,
-                   two_tier_spill_frac=0.15)
+CFG = bench_config()
 
 
 @pytest.fixture(scope="module")
@@ -49,8 +48,11 @@ def assert_fwd_agrees(got, want):
     """nblk equal; out at >= 60 dB with at most 1e-4 of its channels off
     by more than 1e-4 (a sequential T *= 1 - alpha can flip one splat's
     T >= 1e-4 gate against the block-cumsum form); log-T within 1e-3
-    where it is above -20."""
-    (out, tfin, nblk), (rout, rtfin, rnblk) = got, want
+    where it is above -20; the group ends of log_t_groups in the processed
+    blocks (the kernel writes no others), where above -20, with at most
+    1e-4 of them off by more than 1e-3 (an alpha at the 1/255 cutoff kept
+    on one side only moves the group ends after it by 3.9e-3)."""
+    (out, tfin, nblk, ltg), (rout, rtfin, rnblk, rltg) = got, want
     assert torch.equal(nblk, rnblk)
     err = (out - rout).abs()
     mse = float((err ** 2).mean())
@@ -58,6 +60,12 @@ def assert_fwd_agrees(got, want):
     assert float((err > 1e-4).float().mean()) <= 1e-4
     live = rtfin > -20
     assert float((tfin - rtfin).abs()[live].max()) <= 1e-3
+    done = (torch.arange(ltg.shape[1], device=ltg.device)[None, :]
+            < nblk[:, None].long() * (BK // LT_GROUP))[:, :, None]
+    live = done & (rltg > -20)
+    if bool(live.any()):
+        off = (ltg - rltg).abs()[live] > 1e-3
+        assert float(off.float().mean()) <= 1e-4
 
 
 def test_kernel_matches_plain_at_bench_config(device):
@@ -94,6 +102,24 @@ def test_kernel_matches_plain_with_depth_limit_and_two_images(device):
     assert_fwd_agrees(got, composite_fwd_plain(geom, feat, counts, dlim, **kw))
 
 
+@pytest.mark.parametrize("tile_size", [32, 12])
+def test_kernel_matches_plain_on_other_tile_sizes(device, tile_size):
+    """32x32 tiles run the forward's 1024-thread instance; 12x12 tiles
+    (144 pixels) end in a partial warp."""
+    g, cam = _scene(device)
+    cfg = RenderConfig(tile_size=tile_size, tile_capacity=1024)
+    with torch.no_grad():
+        geom, feat, counts, _ = bin_and_gather_packed(
+            project(g, cam, cfg), cam.width, cam.height, cfg)
+    tiles_x, _ = num_tiles(cam.width, cam.height, tile_size)
+    kw = dict(tiles_x=tiles_x, cfg=cfg, has_dlim=False)
+    before = composite_fwd.launches
+    got = composite_fwd(geom, feat, counts, None, **kw)
+    torch.cuda.synchronize()
+    assert composite_fwd.launches == before + 1
+    assert_fwd_agrees(got, composite_fwd_plain(geom, feat, counts, None, **kw))
+
+
 def test_rasterize_on_card_matches_cpu_reference(device):
     g, cam = _scene(device, n=1500, w=64, h=48)
     cfg = RenderConfig(tile_capacity=512)
@@ -128,15 +154,55 @@ def test_bwd_kernel_matches_plain_at_bench_config(device, absgrad):
             project(g, cam, cfg, abs_probe=probe), cam.width, cam.height, cfg)
     tiles_x, _ = num_tiles(cam.width, cam.height, cfg.tile_size)
     kw = dict(tiles_x=tiles_x, cfg=cfg, has_dlim=False)
-    out, tfin, nblk = composite_fwd(geom, feat, counts, None, **kw)
+    out, tfin, nblk, ltg = composite_fwd(geom, feat, counts, None, **kw)
     gout = torch.randn(out.shape, generator=torch.Generator().manual_seed(4))
     gout = gout.to(device)
     before = composite_bwd.launches
-    got = composite_bwd(geom, feat, counts, None, gout, tfin, nblk, **kw)
+    got = composite_bwd(geom, feat, counts, None, gout, tfin, nblk, ltg, **kw)
     torch.cuda.synchronize()
     assert composite_bwd.launches == before + 1
     assert_bwd_agrees(got, composite_bwd_plain(geom, feat, counts, None, gout,
-                                               tfin, nblk, **kw))
+                                               tfin, nblk, ltg, **kw))
+
+
+def _sparse_scene(device):
+    """60 splats over a 256x256 view: most tiles empty or nearly so."""
+    g, cam = _scene(device, n=60, w=256, h=256)
+    return g, cam, CFG
+
+
+@pytest.mark.parametrize("make", [saturated_scene, _sparse_scene],
+                         ids=["saturated", "sparse"])
+def test_kernels_match_plain_where_work_is_skipped(device, make):
+    g, cam, cfg = make(device)
+    with torch.no_grad():
+        geom, feat, counts, stats = bin_and_gather_packed(
+            project(g, cam, cfg), cam.width, cam.height, cfg)
+    assert int(stats.truncated_gaussians) == 0
+    tiles_x, _ = num_tiles(cam.width, cam.height, cfg.tile_size)
+    kw = dict(tiles_x=tiles_x, cfg=cfg, has_dlim=False)
+    got = composite_fwd(geom, feat, counts, None, **kw)
+    torch.cuda.synchronize()
+    assert_fwd_agrees(got, composite_fwd_plain(geom, feat, counts, None, **kw))
+    out, tfin, nblk, ltg = got
+    gout = torch.randn(out.shape, generator=torch.Generator().manual_seed(8))
+    gout = gout.to(device)
+    bwd = composite_bwd(geom, feat, counts, None, gout, tfin, nblk, ltg, **kw)
+    torch.cuda.synchronize()
+    assert_bwd_agrees(bwd, composite_bwd_plain(geom, feat, counts, None, gout,
+                                               tfin, nblk, ltg, **kw))
+    assert float(bwd[0][:, :6].abs().max()) > 0.0
+
+
+def test_bwd_kernel_needs_log_t_groups(device):
+    g, cam = _scene(device, n=500, w=32, h=32)
+    with torch.no_grad():
+        geom, feat, counts, _ = bin_and_gather_packed(
+            project(g, cam, CFG), cam.width, cam.height, CFG)
+    kw = dict(tiles_x=2, cfg=CFG, has_dlim=False)
+    out, tfin, nblk, _ = composite_fwd(geom, feat, counts, None, **kw)
+    with pytest.raises(ValueError, match="log_t_groups"):
+        composite_bwd(geom, feat, counts, None, out, tfin, nblk, None, **kw)
 
 
 def test_train_step_on_card_matches_cpu(device):
