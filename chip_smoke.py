@@ -40,6 +40,21 @@ Phases, each of which raises on a fault (nothing is caught):
                train step (CUDA events and host wall), the train step's
                device idle share and top kernels (profiler), and its
                Gaussians/s (bench.py's metric, here on the card)
+  7. rollout — the rollout path at full width (tools/workloads.py: 200k
+               splats, SH 2, four 640x480 cameras, K=512, M=64, bbox 84,
+               two-tier split 12, its spill tier sized to the draw; a
+               box-with-hinged-lid URDF of 24,576 triangles in front of
+               the splats, posed by a trajectory file): zero truncated splats
+               on every camera; cli.render_rollout --autotune writes 8 x 4
+               PNGs; render_rollout in process launches the forward
+               kernel once per (step, camera), its frames agree with the
+               CLI's and, at step 0, reach 60 dB against K=8192; no
+               truncated triangle or overflowed mesh tile (at the
+               workload's mesh capacity, 2048) on any step, camera or
+               link; the kernel against its plain version with
+               a mesh depth limit; the card against the CPU path on a
+               small scene; the frame's time, idle share and stage split,
+               and the kernel's time and bound at this shape
 The line before the last lists the kernels; the last line is the result.
 Exits non-zero without a CUDA device.
 """
@@ -220,6 +235,34 @@ def pair_work(geom, counts, nblk, dlim, tiles_x, cfg):
         live += int(alive.sum())
         live_kept += int((alive & keep).sum())
     return int(slots.sum()) * P, kept, weighted, live, live_kept
+
+
+def fwd_bound(geom, counts, nblk, dlim, tiles_x, cfg):
+    """The forward kernel's bound on these inputs, from the pairs of its
+    processed blocks: (bound_ms, "operations" or "bytes", a line that
+    shows the count, pair_work's counts). Bytes: counts, geom rows 0..5
+    (and the depth row 6 with a limit) and feat rows 0..7 of the
+    evaluated slots, the limit, out (8 rows), log-T, nblk and the
+    processed groups of log_t_groups."""
+    from robosimgs_tpu_torch.render.kernels import LT_GROUP
+    work = pair_work(geom, counts, nblk, dlim, tiles_x, cfg)
+    pairs, kept, weighted = work[:3]
+    T, P = geom.shape[0], cfg.tile_size ** 2
+    n_slots = pairs // P
+    has_dlim = dlim is not None
+    n_ltg = int(nblk.sum()) * (BK // LT_GROUP) * P
+    nbytes = 4 * (T + (15 if has_dlim else 14) * n_slots
+                  + (T * P if has_dlim else 0) + 8 * T * P + T * P + T + n_ltg)
+    per_eval = FLOPS_EVAL + (FLOPS_EVAL_DLIM if has_dlim else 0)
+    flops = per_eval * pairs + FLOPS_KEPT * kept + FLOPS_WEIGHTED * weighted
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    detail = (f"{bound_by}: {flops} flop = {pairs} evaluated x {per_eval} + "
+              f"{kept} kept x {FLOPS_KEPT} + {weighted} weighted x "
+              f"{FLOPS_WEIGHTED}, {ops_ms:.6f} ms; {nbytes} B, {bytes_ms:.6f} "
+              f"ms; blocks {int(nblk.sum())}")
+    return max(ops_ms, bytes_ms), bound_by, detail, work
 
 
 def read_png_rgb(path):
@@ -605,29 +648,18 @@ def main() -> int:
             geom, feat, counts, None, gout, *fwd[1:], **kw), reps=10)
     nblk = fwd[2]
     with torch.no_grad():
-        pairs, kept, weighted, live, live_kept = pair_work(
-            geom, counts, nblk, None, tiles_x, cfg)
+        bound_ms, bound_by, detail, work = fwd_bound(geom, counts, nblk, None,
+                                                     tiles_x, cfg)
+    pairs, kept, weighted, live, live_kept = work
     n_slots = pairs // P
     T, _, K = geom.shape
     # log_t_groups entries of the processed blocks: the forward writes,
     # and the backward reads, no others
     n_ltg = int(nblk.sum()) * (BK // LT_GROUP) * P
-    # bytes: counts, geom rows 0..5 (no depth row without a limit) and
-    # feat rows 0..7 of the evaluated slots, out (8 rows), log-T, nblk,
-    # log_t_groups
-    nbytes = 4 * (T + 14 * n_slots + 8 * T * P + T * P + T + n_ltg)
-    flops = FLOPS_EVAL * pairs + FLOPS_KEPT * kept + FLOPS_WEIGHTED * weighted
-    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
-    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    bound_ms = max(ops_ms, bytes_ms)
-    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
     log(f"[6 times] {smi}: composite_fwd {kernel_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, rasterize {res}x{res} {render_ms:.4f} ms, "
         f"{launches_main} launch(es) per render")
-    log(f"  bound {bound_ms:.6f} ms ({bound_by}: {flops} flop = {pairs} "
-        f"evaluated x {FLOPS_EVAL} + {kept} kept x {FLOPS_KEPT} + "
-        f"{weighted} weighted x {FLOPS_WEIGHTED}, {ops_ms:.6f} ms; {nbytes} B,"
-        f" {bytes_ms:.6f} ms; blocks {int(nblk.sum())}), share "
+    log(f"  bound {bound_ms:.6f} ms ({detail}), share "
         f"{bound_ms / kernel_ms:.4f} of the kernel's time; library call: none")
     # the backward's bound: the pairs their pixels enter unsaturated (the
     # forward must evaluate every pair of the processed blocks for its
@@ -722,16 +754,23 @@ def main() -> int:
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"    {e.self_device_time_total / 1e3 / n_prof:8.4f} ms "
             f"x{e.count // n_prof:<4d} {e.key[:90]}")
+
+    # 7. the rollout path
+    roll = rollout(dev, smi)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
         "name": "composite_fwd", "route": "cuda",
         "source": "robosimgs_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "robosimgs_tpu/render/pallas_kernels.py:138",
-        "launches": launches_train[0], "max_abs_err": max(err_a, err_b,
-                                                          err_cli, err_skip),
+        "launches": launches_train[0], "max_abs_err": max(
+            err_a, err_b, err_cli, err_skip, roll["max_abs_err"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None}, {
+        "bound_by": bound_by, "library_ms": None,
+        "rollout_launches": roll["launches"], "rollout_ms": roll["ms"],
+        "rollout_plain_ms": roll["plain_ms"],
+        "rollout_bound_ms": roll["bound_ms"],
+        "rollout_bound_by": roll["bound_by"]}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "robosimgs_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "robosimgs_tpu/render/pallas_kernels.py:221",
@@ -741,6 +780,269 @@ def main() -> int:
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0
+
+
+def rollout(dev, smi: str) -> dict:
+    """Phase 7: the rollout path at full width (the rollout workload of
+    tools/workloads.py: 200k splats, the 24,576-triangle object, 8 steps x
+    4 cameras at 640x480). The CLI writes its 32 PNGs; render_rollout in
+    process launches the forward kernel once per (step, camera); every
+    check raises. Returns the forward kernel's numbers at this shape."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from robosimgs_tpu_torch.cli import render_rollout as cli_rollout
+    from robosimgs_tpu_torch.core.types import Gaussians
+    from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
+    from robosimgs_tpu_torch.render.compose import (merge_mesh_layers,
+                                                    render_composite)
+    from robosimgs_tpu_torch.render.gathered import tile_image
+    from robosimgs_tpu_torch.render.kernels import (composite_bwd,
+                                                    composite_fwd,
+                                                    composite_fwd_plain)
+    from robosimgs_tpu_torch.render.mesh_raster import rasterize_mesh
+    from robosimgs_tpu_torch.render.project import project
+    from robosimgs_tpu_torch.render.tiles import num_tiles
+    from robosimgs_tpu_torch.scenegen.rollout import (ArticulatedObject,
+                                                      render_rollout)
+    from robosimgs_tpu_torch.scenegen.trajectory import load_trajectory
+    from robosimgs_tpu_torch.tools.workloads import (ROLLOUT_BASE,
+                                                     ROLLOUT_MESH,
+                                                     ROLLOUT_STEPS,
+                                                     grid_box_mesh,
+                                                     rollout_scene, time_ms,
+                                                     write_rollout_inputs,
+                                                     write_rollout_object)
+    from robosimgs_tpu_torch.train.io_ply import save_ply
+
+    t7 = time.perf_counter()
+    g, cams, cfg = rollout_scene(dev)
+    n_cam, W, H = len(cams), cams[0].width, cams[0].height
+    tx, ty = num_tiles(W, H, cfg.tile_size)
+    log(f"[7 rollout] {g.capacity} splats, {n_cam} cameras {W}x{H}; spill "
+        f"tier fitted to this draw: two_tier_spill_frac "
+        f"{cfg.two_tier_spill_frac:.6f} (bench.py's draw: 0.44864)")
+    with torch.no_grad():
+        for i, c in enumerate(cams):
+            *_, st = bin_and_gather_packed(project(g, c, cfg), W, H, cfg)
+            # K=512 overflows by design (saturated tiles keep their
+            # closest 512, gated below against K=8192); M must not truncate
+            log(f"  cam {i}: splats truncated "
+                f"{int(st.truncated_gaussians)}, overflowed tiles "
+                f"{int(st.overflowed_tiles)} of {tx * ty}, max_tile_count "
+                f"{int(st.max_tile_count)}, pairs {int(st.total_pairs)}")
+            if int(st.truncated_gaussians):
+                raise AssertionError(f"rollout cam {i} truncates splats")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        urdf = write_rollout_object(tmp)
+        obj = ArticulatedObject.from_urdf(urdf)
+        traj_path, cams_path = write_rollout_inputs(tmp, obj.model)
+        traj, poses = load_trajectory(traj_path, [obj.model])
+        scene = os.path.join(tmp, "scene.ply")
+        save_ply(scene, g)
+        out_dir = os.path.join(tmp, "frames")
+        composite_fwd.launches = 0
+        t_cli = time.perf_counter()
+        cli_rollout.main(["--scene", scene, "--urdf", urdf, "--trajectory",
+                          traj_path, "--cameras", cams_path, "--steps",
+                          str(ROLLOUT_STEPS), "--n-cameras", str(n_cam),
+                          "--width", str(W), "--height", str(H),
+                          "--autotune", "--output", out_dir])
+        torch.cuda.synchronize()
+        cli_s = time.perf_counter() - t_cli
+        names = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
+        if len(names) != ROLLOUT_STEPS * n_cam:
+            raise AssertionError(f"the rollout CLI wrote {len(names)} PNGs")
+        cli_frames = np.stack([np.stack([read_png_rgb(os.path.join(
+            out_dir, f"frame_{t:04d}_cam{c}.png")) for c in range(n_cam)])
+            for t in range(ROLLOUT_STEPS)])
+    log(f"  cli.render_rollout --autotune: {len(names)} PNGs {W}x{H} in "
+        f"{cli_s:.1f} s, launches {composite_fwd.launches} (autotune's "
+        f"gate renders included)")
+
+    # the main path in process: one forward launch per (step, camera)
+    composite_fwd.launches = composite_bwd.launches = 0
+    t0 = time.perf_counter()
+    frames = render_rollout(g, [obj], traj, cams, cfg=cfg, mesh_cfg=ROLLOUT_MESH,
+                            base_poses=poses)
+    torch.cuda.synchronize()
+    roll_s = time.perf_counter() - t0
+    launches = (composite_fwd.launches, composite_bwd.launches)
+    log(f"  render_rollout {ROLLOUT_STEPS} steps x {n_cam} cameras: "
+        f"{roll_s:.2f} s, launches fwd {launches[0]} bwd {launches[1]}")
+    if launches != (ROLLOUT_STEPS * n_cam, 0):
+        raise AssertionError(f"render_rollout launched {launches}")
+    if frames.shape != (ROLLOUT_STEPS, n_cam, H, W, 3) \
+            or not np.isfinite(frames).all():
+        raise AssertionError(f"rollout frames {frames.shape}, not finite")
+    moved = float(np.abs(frames[ROLLOUT_STEPS // 2] - frames[0]).max())
+    q = np.clip(np.round(frames * 255.0), 0, 255)
+    cli_db = min(psnr(torch.from_numpy(cli_frames[:, c] / 255.0),
+                      torch.from_numpy(q[:, c] / 255.0)) for c in range(n_cam))
+    log(f"  the lid moves: max change {moved:.3f}; CLI PNGs (autotuned "
+        f"capacities) against the in-process frames: {cli_db:.1f} dB")
+    if moved < 1e-2 or cli_db < 40.0:
+        raise AssertionError("rollout frames do not move or the CLI's differ")
+
+    # every (step, camera, link): no truncated triangle, no overflowed tile
+    # at the workload's mesh capacity (the CLI keeps the default 512)
+    worst, cover, past_default = 0, [], 0
+    with torch.no_grad():
+        for t in range(ROLLOUT_STEPS):
+            meshes = obj.posed_meshes(traj[t], base_pose=poses[t, 0],
+                                      device=dev)
+            for i, c in enumerate(cams):
+                masks = []
+                for v, f, col in meshes:
+                    o = rasterize_mesh(v, f, c, vertex_colors=col,
+                                       cfg=ROLLOUT_MESH)
+                    s = o["stats"]
+                    if int(s.truncated_gaussians) or int(s.overflowed_tiles):
+                        raise AssertionError(
+                            f"step {t} cam {i}: mesh truncates "
+                            f"{int(s.truncated_gaussians)} triangles, "
+                            f"overflows {int(s.overflowed_tiles)} tiles")
+                    worst = max(worst, int(s.max_tile_count))
+                    past_default += int(s.max_tile_count) > 512
+                    masks.append(o["mask"])
+                cover.append(float((masks[0] | masks[1]).float().mean()))
+    log(f"  mesh: {len(meshes)} links, {sum(int(m[1].shape[0]) for m in meshes)}"
+        f" triangles, 0 truncated and 0 overflowed at K="
+        f"{ROLLOUT_MESH.tile_capacity} over {ROLLOUT_STEPS} steps x {n_cam} "
+        f"cameras, max_tile_count {worst} ({past_default} of "
+        f"{len(cover) * len(meshes)} link renders past the default K=512); "
+        f"object covers {min(cover):.3f}-{max(cover):.3f} of a view")
+    if min(cover) < 0.01:
+        raise AssertionError("the object occludes nothing in some view")
+
+    # against the lossless render (K=8192) at step 0
+    cfg_ll = type(cfg)(**{**cfg.__dict__, "tile_capacity": 8192})
+    full = render_rollout(g, [obj], traj[:1], cams, cfg=cfg_ll,
+                          mesh_cfg=ROLLOUT_MESH, base_poses=poses[:1])
+    dbs = [psnr(torch.from_numpy(frames[0, c]), torch.from_numpy(full[0, c]))
+           for c in range(n_cam)]
+    log("  K=512 against K=8192 at step 0: "
+        + " ".join(f"{d:.1f}" for d in dbs) + " dB")
+    if min(dbs) < 60.0:
+        raise AssertionError("the rollout config is below 60 dB")
+
+    # the kernel against its plain version with camera 0's mesh depth limit
+    def mesh_layers(cam, meshes):
+        return merge_mesh_layers([
+            {k: o[k] for k in ("rgb", "depth", "mask", "face_id")}
+            for o in (rasterize_mesh(v, f, cam, vertex_colors=col,
+                                     cfg=ROLLOUT_MESH)
+                      for v, f, col in meshes)])
+
+    with torch.no_grad():
+        meshes0 = obj.posed_meshes(traj[0], base_pose=poses[0, 0], device=dev)
+        m0 = mesh_layers(cams[0], meshes0)
+        proj0 = project(g, cams[0], cfg)
+        geom, feat, counts, _ = bin_and_gather_packed(proj0, W, H, cfg)
+        dlim = tile_image(m0["depth"], tx, ty, cfg.tile_size,
+                          pad_value=float("inf"))[..., None].contiguous()
+        kw = dict(tiles_x=tx, cfg=cfg, has_dlim=True)
+        got = composite_fwd(geom, feat, counts, dlim, **kw)
+        torch.cuda.synchronize()
+        err, _ = compare_fwd(got, composite_fwd_plain(geom, feat, counts, dlim,
+                                                      **kw),
+                             f"rollout cam 0 {W}x{H} mesh depth limit")
+    log(f"  cam 0: T={geom.shape[0]} K={geom.shape[2]}, depth limit finite on"
+        f" {float(torch.isfinite(m0['depth']).float().mean()):.3f} of the "
+        f"pixels, blocks per tile max {int(got[2].max())} mean "
+        f"{float(got[2].float().mean()):.2f}")
+
+    # the card against the CPU path (plain versions) on a small scene
+    small = Gaussians.random(torch.Generator().manual_seed(3), 1500,
+                             sh_degree=2, extent=1.5, device=dev)
+    cam_s = cams[0].resized(64, 48)
+    box = grid_box_mesh((0.25, 0.25, 0.1), 2, (0.8, 0.6, 0.4), seed=0)
+    mesh_np = (box.vertices + np.float32(ROLLOUT_BASE), box.faces,
+               box.vertex_colors)
+    cfg_s = type(cfg)(tile_capacity=512)
+    outs = {}
+    for d in ("cpu", "cuda"):
+        m = [tuple(torch.from_numpy(x).to(d) for x in mesh_np)]
+        with torch.no_grad():
+            outs[d] = (render_composite(small.to(d), cam_s.to(d), m, cfg_s,
+                                        impl="tiled"),
+                       rasterize_mesh(*m[0][:2], cam_s.to(d),
+                                      vertex_colors=m[0][2]))
+    card, cpu = outs["cuda"], outs["cpu"]
+    errs = {k: (card[0][k].cpu() - cpu[0][k]).abs()
+            for k in ("rgb", "alpha", "splat_depth")}
+    mask_off = int((card[1]["mask"].cpu() != cpu[1]["mask"]).sum())
+    both = card[1]["mask"].cpu() & cpu[1]["mask"]
+    dep_err = float((card[1]["depth"].cpu() - cpu[1]["depth"])[both].abs().max())
+    log(f"  card vs CPU, 64x48 with a box: render_composite max|err| "
+        + " ".join(f"{k} {float(e.max()):.2e}" for k, e in errs.items())
+        + f"; rasterize_mesh mask off on {mask_off} px, depth max|err| "
+        f"{dep_err:.2e}")
+    if any(float(e.max()) > 2e-3 or float((e > 1e-4).float().mean()) > 1e-3
+           for e in errs.values()) or mask_off > 3 or dep_err > 1e-5 \
+            or not bool(both.any()):
+        raise AssertionError("the rollout path on the card disagrees with "
+                             "the CPU path")
+
+    # times: the 4-camera frame, its stages, the kernel at this shape
+    with torch.no_grad():
+        def frame():
+            meshes = obj.posed_meshes(traj[0], base_pose=poses[0, 0],
+                                      device=dev)
+            return [render_composite(g, c, meshes, cfg, ROLLOUT_MESH)["rgb"]
+                    for c in cams]
+
+        frame_ms = time_ms(frame, reps=10)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            frame()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3 / 10
+        n_prof = 3
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(n_prof):
+                frame()
+            torch.cuda.synchronize()
+        stages = {
+            "rasterize_mesh x2 + merge": time_ms(
+                lambda: mesh_layers(cams[0], meshes0), reps=10),
+            "project": time_ms(lambda: project(g, cams[0], cfg), reps=20),
+            "bin_and_gather_packed": time_ms(
+                lambda: bin_and_gather_packed(proj0, W, H, cfg), reps=10),
+            "composite_fwd": time_ms(
+                lambda: composite_fwd(geom, feat, counts, dlim, **kw), reps=200),
+        }
+        plain_ms = time_ms(lambda: composite_fwd_plain(geom, feat, counts,
+                                                       dlim, **kw), reps=5)
+        bound_ms, bound_by, detail, _ = fwd_bound(geom, counts, got[2], dlim,
+                                                  tx, cfg)
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n_prof
+    n_kern = sum(e.count for e in events) // n_prof
+    kernel_ms = stages["composite_fwd"]
+    log(f"[7 times] {smi}: rollout frame ({n_cam} x {W}x{H}, {len(meshes0)} "
+        f"mesh links) {frame_ms:.4f} ms (CUDA events), host wall "
+        f"{wall_ms:.4f} ms, device busy {busy_ms:.4f} ms (profiler, {n_kern} "
+        f"kernels/frame), idle share {1 - busy_ms / wall_ms:.3f}")
+    log("  stages per camera (ms, CUDA events): "
+        + ", ".join(f"{k} {v:.4f}" for k, v in stages.items())
+        + f"; x{n_cam} = {n_cam * sum(stages.values()):.4f}")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"    {e.self_device_time_total / 1e3 / n_prof:8.4f} ms "
+            f"x{e.count // n_prof:<4d} {e.key[:90]}")
+    log(f"  composite_fwd at the rollout shape {kernel_ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, {launches[0] // ROLLOUT_STEPS} launches per "
+        f"frame; bound {bound_ms:.6f} ms ({detail}), share "
+        f"{bound_ms / kernel_ms:.4f}; library call: none; phase "
+        f"{time.perf_counter() - t7:.1f} s")
+    return {"launches": launches[0], "max_abs_err": err, "ms": kernel_ms,
+            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 if __name__ == "__main__":

@@ -7,7 +7,9 @@ from robosimgs_tpu; the JAX package stays the reference its tests hold
 it against.
 
 Ported so far: the 3DGS render path (core/, render/, train/io_ply.py,
-cli/render.py) and the 3DGS training step (train/, cli/train.py),
+cli/render.py), the 3DGS training step (train/, cli/train.py) and the
+rollout render path (render/mesh_raster.py, render/compose.py,
+render/autotune.py, scenegen/, utils/meshio.py, cli/render_rollout.py),
 compositing through csrc/composite_fwd.cu and its backward
 csrc/composite_bwd.cu.
 """

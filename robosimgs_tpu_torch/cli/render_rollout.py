@@ -1,0 +1,128 @@
+"""Rollout rendering CLI: trained scene + URDF objects + trajectory ->
+multi-camera frames (the data-generation render stage).
+
+The port of robosimgs_tpu/cli/render_rollout.py, with the same flags
+plus `--device` (default cuda). Frames are written as 8-bit PNGs
+(frame_TTTT_camC.png) by cli/render.py's writer.
+
+    python -m robosimgs_tpu_torch.cli.render_rollout --scene scene.ply \\
+        --urdf object.urdf --steps 16 --n-cameras 4 --autotune --output frames
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+
+
+def build_parser():
+    p = argparse.ArgumentParser(
+        description="Render multi-camera rollout frames")
+    p.add_argument("--scene", required=True, help="background .ply (3DGS)")
+    p.add_argument("--urdf", action="append", default=[],
+                   help="articulated object URDF (repeatable)")
+    p.add_argument("--trajectory", default=None,
+                   help="npy/json (T, dof) joint trajectory; default: "
+                        "open-close sweep")
+    p.add_argument("--steps", type=int, default=16)
+    p.add_argument("--cameras", default=None,
+                   help="json list of {eye, target, up, fov, width, height}")
+    p.add_argument("--width", type=int, default=640)
+    p.add_argument("--height", type=int, default=480)
+    p.add_argument("--n-cameras", type=int, default=4)
+    p.add_argument("--output", required=True, help="output dir (png frames)")
+    p.add_argument("--impl", default="auto")
+    p.add_argument("--shard-cameras", action="store_true",
+                   help="shard cameras over devices (not ported yet)")
+    p.add_argument("--autotune", action="store_true",
+                   help="measure the scene against the rollout cameras "
+                        "and render with lossless-fit capacities + the "
+                        "two-tier sort")
+    p.add_argument("--autotune-gate-db", type=float, default=60.0,
+                   help="with --autotune: shrink tile_capacity to the "
+                        "smallest K whose render matches the full-"
+                        "demand capacity above this PSNR (saturation "
+                        "gate; 0 disables and keeps the lossless K)")
+    p.add_argument("--device", default="cuda",
+                   help="torch device to render on (default: cuda)")
+    return p
+
+
+def main(argv=None):
+    args = build_parser().parse_args(argv)
+    if args.shard_cameras:
+        raise SystemExit("--shard-cameras is not ported yet (ROADMAP queue 1 "
+                         "item 5, multi-device)")
+    import numpy as np
+
+    from robosimgs_tpu_torch.cli.render import write_png
+    from robosimgs_tpu_torch.core.camera import Camera
+    from robosimgs_tpu_torch.scenegen.rollout import (ArticulatedObject,
+                                                      open_close_trajectory,
+                                                      render_rollout)
+    from robosimgs_tpu_torch.train.io_ply import load_ply
+
+    background = load_ply(args.scene, device=args.device)
+    objects = [ArticulatedObject.from_urdf(u) for u in args.urdf]
+
+    cams = []
+    if args.cameras:
+        with open(args.cameras) as fh:
+            specs = json.load(fh)
+        for c in specs:
+            cams.append(Camera.look_at(
+                c["eye"], c["target"], c.get("up", [0, 0, 1]),
+                c.get("fov", 60.0), c.get("width", args.width),
+                c.get("height", args.height), device=args.device))
+    else:
+        for i in range(args.n_cameras):
+            ang = 2 * np.pi * i / args.n_cameras
+            cams.append(Camera.look_at(
+                [2.5 * np.cos(ang), 2.5 * np.sin(ang), 1.5], [0, 0, 0.3],
+                [0, 0, 1], 60.0, args.width, args.height, device=args.device))
+
+    base_poses = None
+    if args.trajectory:
+        if args.trajectory.endswith(".npy"):
+            traj = np.load(args.trajectory)
+        else:
+            with open(args.trajectory) as fh:
+                loaded = json.load(fh)
+            if isinstance(loaded, dict) and "steps" in loaded:
+                from robosimgs_tpu_torch.scenegen.trajectory import \
+                    load_trajectory
+                traj, base_poses = load_trajectory(
+                    args.trajectory, [o.model for o in objects])
+            else:
+                traj = np.asarray(loaded, np.float32)
+    elif objects:
+        trajs = [open_close_trajectory(o.model, args.steps) for o in objects]
+        traj = np.concatenate(trajs, axis=1)
+    else:
+        traj = np.zeros((args.steps, 0), np.float32)
+
+    kw = {}
+    if args.autotune:
+        from robosimgs_tpu_torch.render.autotune import recommend_capacities
+        rcfg = recommend_capacities(background, cams,
+                                    gate_db=args.autotune_gate_db or None)
+        print(f"autotuned: K={rcfg.tile_capacity} "
+              f"M={rcfg.max_tiles_per_gaussian} "
+              f"bbox={rcfg.bbox_tiles_per_gaussian} "
+              f"two_tier={rcfg.two_tier_split}")
+        kw["cfg"] = rcfg
+
+    frames = render_rollout(background, objects, traj, cams, impl=args.impl,
+                            base_poses=base_poses, as_uint8=True, **kw)
+    os.makedirs(args.output, exist_ok=True)
+    T, C = frames.shape[:2]
+    for t in range(T):
+        for c in range(C):
+            write_png(os.path.join(args.output, f"frame_{t:04d}_cam{c}.png"),
+                      frames[t, c])
+    print(f"wrote {T * C} frames to {args.output}")
+
+
+if __name__ == "__main__":
+    main()

@@ -14,6 +14,10 @@ Differences of form: the key is int64 (tile id << rank bits | rank), so
 the packed single-key sort always applies; the per-tile windows are one
 index gather; the two-tier spill takes the widest gaussians with a
 stable descending sort (lowest index first among equal covers).
+
+`bin_rects` is the generic binner for any rect-bounded primitive (the
+mesh rasterizer's triangles), and `per_gaussian_cover` counts the tiles
+each splat reaches after the exact cull (capacity autotuning).
 """
 
 from __future__ import annotations
@@ -36,6 +40,86 @@ class BinStats:
     overflowed_tiles: torch.Tensor     # tiles with more than capacity entries
     max_tile_count: torch.Tensor       # max entries wanted by any tile
     total_pairs: torch.Tensor          # total (gaussian, tile) intersections
+
+
+def _bbox_slots(tx0, ty0, tx1, ty1, n_slots: int, tiles_x: int):
+    """Row-major enumeration of up to n_slots tiles of each inclusive
+    tile bbox: (tid, row, col, in_bbox) (n, n_slots) and cover (n,)."""
+    bw = (tx1 - tx0 + 1).clamp_min(0)
+    cover = bw * (ty1 - ty0 + 1).clamp_min(0)
+    e = torch.arange(n_slots, device=tx0.device)[None, :]
+    bw_safe = bw.clamp_min(1)[:, None]
+    row = torch.div(e, bw_safe, rounding_mode="floor")
+    col = e - row * bw_safe
+    tid = (ty0[:, None] + row) * tiles_x + (tx0[:, None] + col)
+    return tid, row, col, e < cover[:, None], cover
+
+
+def bin_rects(tx0: torch.Tensor, ty0: torch.Tensor, tx1: torch.Tensor,
+              ty1: torch.Tensor, rank: torch.Tensor, valid: torch.Tensor,
+              tiles_x: int, tiles_y: int, max_tiles_per_prim: int,
+              tile_capacity: int):
+    """Generic tile binner for rect-bounded primitives: (sel (T, K) int64
+    primitive indices ordered by `rank` within each tile, 0 past the
+    count; counts (T,) int32; stats). tx0..ty1 are each primitive's
+    inclusive tile bbox (tx1 < tx0 when empty), rank (n,) its order in
+    [0, n), distinct within a tile. A primitive enumerates at most
+    max_tiles_per_prim tiles (row-major; the rest are counted as
+    truncated) and a tile keeps its first tile_capacity entries (the rest
+    counted as overflow). The JAX package sorts (tile, rank, id) with one
+    two-key sort; here one stable sort of the int64 key tile << bits |
+    rank, whose permutation gives the ids."""
+    T = tiles_x * tiles_y
+    n = tx0.shape[0]
+    M, K = max_tiles_per_prim, tile_capacity
+    dev = tx0.device
+    tid, _, _, in_bbox, cover = _bbox_slots(tx0, ty0, tx1, ty1, M, tiles_x)
+    tid = torch.where(in_bbox & valid[:, None], tid, torch.full_like(tid, T))
+    bits = max(1, (n - 1).bit_length())
+    key = ((tid << bits) | rank.long()[:, None]).reshape(-1)
+    s_key, perm = torch.sort(key, stable=True)
+    L = key.shape[0]
+    bounds = torch.searchsorted(s_key, torch.arange(T + 1, device=dev) << bits)
+    s_id = torch.cat([torch.div(perm, M, rounding_mode="floor"),
+                      torch.zeros((K,), dtype=perm.dtype, device=dev)])
+    k_ar = torch.arange(K, device=dev)
+    full_counts = bounds[1:] - bounds[:-1]
+    counts = torch.clamp_max(full_counts, K)
+    sel = s_id[torch.clamp_max(bounds[:-1], L)[:, None] + k_ar[None, :]]
+    sel = torch.where(k_ar[None, :] < counts[:, None], sel,
+                      torch.zeros_like(sel))
+    stats = BinStats(
+        truncated_gaussians=((cover > M) & valid).sum(),
+        overflowed_tiles=(full_counts > K).sum(),
+        max_tile_count=full_counts.max(),
+        total_pairs=torch.where(valid, torch.clamp_max(cover, M),
+                                torch.zeros_like(cover)).sum(),
+    )
+    return sel, counts.to(torch.int32), stats
+
+
+def per_gaussian_cover(proj: Projected, width: int, height: int,
+                       cfg: RenderConfig, max_tiles: int) -> torch.Tensor:
+    """(N,) int32: the tiles each gaussian reaches after the exact cull
+    (its bbox cover when exact_tile_cull is off), enumerating up to
+    max_tiles bbox tiles. Autotuning sizes max_tiles_per_gaussian from
+    it (the cull drops bbox corner tiles, so the needed M is smaller
+    than the bbox cover)."""
+    tiles_x, tiles_y = num_tiles(width, height, cfg.tile_size)
+    zero = torch.zeros((), dtype=proj.means2d.dtype, device=proj.means2d.device)
+    radii = torch.where(proj.valid, proj.radii.to(zero.dtype), zero)
+    tx0, ty0, tx1, ty1 = tile_bbox(proj.means2d, radii, tiles_x, tiles_y,
+                                   cfg.tile_size)
+    _, row, col, keep, _ = _bbox_slots(tx0, ty0, tx1, ty1, max_tiles, tiles_x)
+    keep = keep & (radii > 0.0)[:, None]
+    if cfg.exact_tile_cull:
+        cop = torch.stack([proj.conics[:, 0], proj.conics[:, 1],
+                           proj.conics[:, 2],
+                           torch.where(proj.valid, proj.opacities, zero)],
+                          dim=1).detach()
+        keep = keep & _cull_keep(proj.means2d.detach(), cop, tx0, ty0, col,
+                                 row, cfg.tile_size, cfg.alpha_min)
+    return keep.sum(dim=1).to(torch.int32)
 
 
 def _cull_keep(m2d, cop, tx0, ty0, col, row, tile_size: int,
@@ -143,18 +227,12 @@ def bin_and_gather_packed(proj: Projected, width: int, height: int,
 
     tx0, ty0, tx1, ty1 = tile_bbox(m2d_s, radii_s, tiles_x, tiles_y,
                                    cfg.tile_size)
-    bw = (tx1 - tx0 + 1).clamp_min(0)
-    cover = bw * (ty1 - ty0 + 1).clamp_min(0)
-
     # enumerate Mb bbox tiles; after the cull, survivors are compacted
     # down to M slots by a row-local sort (sentinel T sorts last)
     Mb = max(cfg.bbox_tiles_per_gaussian, M)
-    e = torch.arange(Mb, device=dev)[None, :]
-    bw_safe = bw.clamp_min(1)[:, None]
-    valid_e = (e < cover[:, None]) & valid_s[:, None]
-    row = torch.div(e, bw_safe, rounding_mode="floor")
-    col = e - row * bw_safe
-    tid = (ty0[:, None] + row) * tiles_x + (tx0[:, None] + col)
+    tid, row, col, in_bbox, cover = _bbox_slots(tx0, ty0, tx1, ty1, Mb,
+                                                tiles_x)
+    valid_e = in_bbox & valid_s[:, None]
 
     if cfg.exact_tile_cull:
         valid_e = valid_e & _cull_keep(

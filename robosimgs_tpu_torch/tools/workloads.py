@@ -6,20 +6,74 @@ The bench workload is the JAX package's bench.py render (100k random
 Gaussians, SH degree 3, extent 1.5, 256x256, look_at([4, 0.5, 1.2] -> 0,
 60 deg), K=384, M=10, bbox 12, two-tier 4/0.15), drawn from
 torch.Generator seed 0.
+
+The rollout workload has the statistics of bench.py's rollout config
+(200k random Gaussians, SH degree 2, extent 1.5, four 640x480 cameras at
+look_at([3.0 + 0.1 i, 0.4, 1.0] -> 0, 60 deg), K=512, M=64, bbox 84,
+two-tier split 12), drawn from torch.Generator seed 2, with the
+box-with-hinged-lid object of the JAX package's tests/test_scenegen.py at
+half its size, each box face a 32x32 quad grid (24,576 triangles), placed
+between the cameras and the splats. Its mesh tile capacity is 2048: the
+lid's thin side faces (0.5 x 0.05 m, 2,048 triangles each) seen near edge
+on pile up to ~1,500 triangle bboxes in a 16x16 tile (measured over the
+8 steps x 4 views), past the default 512.
 """
 
 from __future__ import annotations
 
+import dataclasses
+import json
 import math
+import os
 
+import numpy as np
 import torch
 
 from robosimgs_tpu_torch.core.camera import Camera
 from robosimgs_tpu_torch.core.types import Gaussians
 from robosimgs_tpu_torch.render.config import RenderConfig
+from robosimgs_tpu_torch.render.mesh_raster import MeshRasterConfig
+from robosimgs_tpu_torch.utils.meshio import Mesh, save_mesh
 
 BENCH_GAUSSIANS = 100_000
 BENCH_RES = 256
+ROLLOUT_GAUSSIANS = 200_000
+ROLLOUT_STEPS = 8
+ROLLOUT_CAMERAS = [dict(eye=[3.0 + 0.1 * i, 0.4, 1.0], target=[0, 0, 0],
+                        up=[0, 0, 1], fov=60.0, width=640, height=480)
+                   for i in range(4)]
+# the object's resting place: on the cameras' line of sight, in front of
+# the splat cube (|x| <= 1.5)
+ROLLOUT_BASE = (1.8, 0.24, 0.6)
+ROLLOUT_MESH = MeshRasterConfig(tile_capacity=2048)
+ROLLOUT_URDF = """<?xml version="1.0"?>
+<robot name="testbox">
+  <link name="body">
+    <visual>
+      <geometry><mesh filename="body.glb" scale="1 1 1"/></geometry>
+      <material name="m"><color rgba="0.8 0.6 0.4 1.0"/></material>
+    </visual>
+    <inertial><mass value="0.5"/>
+      <inertia ixx="0.01" ixy="0" ixz="0" iyy="0.01" iyz="0" izz="0.01"/>
+    </inertial>
+  </link>
+  <link name="lid">
+    <visual>
+      <geometry><mesh filename="lid.glb" scale="1 1 1"/></geometry>
+      <material name="m2"><color rgba="0.4 0.6 0.8 1.0"/></material>
+    </visual>
+    <inertial><mass value="0.2"/>
+      <inertia ixx="0.01" ixy="0" ixz="0" iyy="0.01" iyz="0" izz="0.01"/>
+    </inertial>
+  </link>
+  <joint name="hinge" type="revolute">
+    <parent link="body"/><child link="lid"/>
+    <origin xyz="0 0.25 0.1" rpy="0 0 0"/>
+    <axis xyz="1 0 0"/>
+    <limit lower="0.0" upper="1.57" effort="5" velocity="2"/>
+    <dynamics friction="0.5" damping="0.2"/>
+  </joint>
+</robot>"""
 
 
 def bench_config() -> RenderConfig:
@@ -61,6 +115,96 @@ def saturated_scene(device, n: int = 256):
     cam = Camera.look_at([2.5, 0.0, 0.0], [0, 0, 0], [0, 0, 1], 45.0, 32, 32,
                          device=device)
     return g, cam, RenderConfig(tile_capacity=384)
+
+
+def rollout_config() -> RenderConfig:
+    return RenderConfig(tile_capacity=512, tile_chunk=512,
+                        max_tiles_per_gaussian=64, bbox_tiles_per_gaussian=84,
+                        two_tier_split=12, two_tier_spill_frac=0.44864)
+
+
+def rollout_scene(device, n: int = ROLLOUT_GAUSSIANS):
+    """(Gaussians, [Camera] x 4, RenderConfig) of the rollout workload.
+
+    The config's spill tier is sized to this scene: bench.py's 0.44864 is
+    the share of its (jax.random) scene's splats that cover more than 12
+    tiles after the cull; this draw's share is measured over the four
+    views (per_gaussian_cover), so the spill keeps every such splat and
+    nothing is truncated."""
+    from robosimgs_tpu_torch.render.binning import per_gaussian_cover
+    from robosimgs_tpu_torch.render.project import project
+
+    g = Gaussians.random(torch.Generator().manual_seed(2), n, sh_degree=2,
+                         extent=1.5, device=device)
+    cams = [Camera.look_at(c["eye"], c["target"], c["up"], c["fov"],
+                           c["width"], c["height"], device=device)
+            for c in ROLLOUT_CAMERAS]
+    cfg = rollout_config()
+    with torch.no_grad():
+        spill = max(int((per_gaussian_cover(
+            project(g, c, cfg), c.width, c.height, cfg,
+            cfg.bbox_tiles_per_gaussian) > cfg.two_tier_split).sum())
+            for c in cams)
+    return g, cams, dataclasses.replace(cfg,
+                                        two_tier_spill_frac=(spill + 0.5) / n)
+
+
+def grid_box_mesh(half, n: int, color, seed: int) -> Mesh:
+    """An axis-aligned box of half extents `half` whose six faces are n x n
+    quad grids (12 n^2 triangles), with vertex colors: `color` shaded by
+    a seeded factor in [0.8, 1]. Face vertices are not shared."""
+    t = np.linspace(-1.0, 1.0, n + 1, dtype=np.float32)
+    uu, vv = np.meshgrid(t, t, indexing="ij")
+    i, j = np.meshgrid(np.arange(n), np.arange(n), indexing="ij")
+    a = (i * (n + 1) + j).reshape(-1)
+    quads = np.stack([a, a + n + 1, a + n + 2, a + 1], -1)
+    tris = np.concatenate([quads[:, [0, 1, 2]], quads[:, [0, 2, 3]]])
+    verts, faces = [], []
+    for axis in range(3):
+        u_ax, v_ax = [k for k in range(3) if k != axis]
+        for sign in (-1.0, 1.0):
+            p = np.zeros(((n + 1) ** 2, 3), np.float32)
+            p[:, axis] = sign
+            p[:, u_ax], p[:, v_ax] = uu.reshape(-1), vv.reshape(-1)
+            faces.append(tris + sum(len(x) for x in verts))
+            verts.append(p * np.asarray(half, np.float32))
+    v = np.concatenate(verts)
+    shade = np.random.default_rng(seed).uniform(0.8, 1.0, (len(v), 1))
+    return Mesh(vertices=v, faces=np.concatenate(faces).astype(np.int32),
+                vertex_colors=(shade * np.asarray(color)).astype(np.float32))
+
+
+def write_rollout_object(directory: str, n: int = 32) -> str:
+    """Write the rollout object (URDF + two untextured .glb links with
+    vertex colors, each box face an n x n grid) into directory; returns
+    the URDF's path."""
+    save_mesh(os.path.join(directory, "body.glb"),
+              grid_box_mesh((0.25, 0.25, 0.1), n, (0.8, 0.6, 0.4), seed=0))
+    save_mesh(os.path.join(directory, "lid.glb"),
+              grid_box_mesh((0.25, 0.25, 0.025), n, (0.4, 0.6, 0.8), seed=1))
+    path = os.path.join(directory, "object.urdf")
+    with open(path, "w") as fh:
+        fh.write(ROLLOUT_URDF)
+    return path
+
+
+def write_rollout_inputs(directory: str, model, steps: int = ROLLOUT_STEPS):
+    """Write the rollout's trajectory (an open-close sweep of the hinge,
+    the object at ROLLOUT_BASE) and camera list as the render_rollout
+    CLI reads them; returns (trajectory path, cameras path)."""
+    from robosimgs_tpu_torch.scenegen.rollout import open_close_trajectory
+    from robosimgs_tpu_torch.scenegen.trajectory import save_trajectory
+
+    base = np.eye(4, dtype=np.float32)
+    base[:3, 3] = ROLLOUT_BASE
+    traj = os.path.join(directory, "trajectory.json")
+    save_trajectory(traj, [model.name], open_close_trajectory(model, steps),
+                    base_poses=np.tile(base, (steps, 1, 1, 1)),
+                    dofs=[model.dof])
+    cams = os.path.join(directory, "cameras.json")
+    with open(cams, "w") as fh:
+        json.dump(ROLLOUT_CAMERAS, fh)
+    return traj, cams
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:

@@ -230,3 +230,77 @@ def test_train_step_on_card_matches_cpu(device):
     diff = (means_gpu - means_cpu).abs()
     assert float(diff.max()) <= 3.3e-4
     assert float((diff > 1e-6).float().mean()) <= 1e-3
+
+
+def _box_meshes(device, n=2):
+    """The rollout object's body as one box of n x n face grids, at its
+    resting place in front of the splats."""
+    import numpy as np
+
+    from robosimgs_tpu_torch.tools.workloads import ROLLOUT_BASE, grid_box_mesh
+    box = grid_box_mesh((0.25, 0.25, 0.1), n, (0.8, 0.6, 0.4), seed=0)
+    return [tuple(torch.from_numpy(x).to(device) for x in (
+        box.vertices + np.float32(ROLLOUT_BASE), box.faces, box.vertex_colors))]
+
+
+def test_render_composite_on_card_matches_cpu(device):
+    """Splats depth-merged with a box, 64x48: the card (the kernel) against
+    the CPU path (its plain version)."""
+    from robosimgs_tpu_torch.render.compose import render_composite
+    from robosimgs_tpu_torch.tools.workloads import rollout_scene
+    g, cams, _ = rollout_scene(device, n=1500)
+    cam = cams[0].resized(64, 48)
+    cfg = RenderConfig(tile_capacity=512)
+    before = composite_fwd.launches
+    with torch.no_grad():
+        out = render_composite(g, cam, _box_meshes(device), cfg)  # tiled
+        ref = render_composite(g.to("cpu"), cam.to("cpu"), _box_meshes("cpu"),
+                               cfg, impl="tiled")
+    assert composite_fwd.launches == before + 1
+    assert bool(out["mesh_mask"].any())
+    for k in ("rgb", "alpha", "splat_depth"):
+        err = (out[k].cpu() - ref[k]).abs()
+        assert float(err.max()) <= 2e-3, k      # at most one gate flip
+        assert float((err > 1e-4).float().mean()) <= 1e-3, k
+
+
+def test_rasterize_mesh_on_card_matches_cpu(device):
+    from robosimgs_tpu_torch.render.mesh_raster import rasterize_mesh
+    from robosimgs_tpu_torch.tools.workloads import rollout_scene
+    _, cams, _ = rollout_scene(device, n=10)
+    cam = cams[0].resized(160, 120)
+    out = {d: rasterize_mesh(*m[:2], cam.to(d), vertex_colors=m[2])
+           for d in ("cpu", "cuda") for m in _box_meshes(d, n=8)}
+    card, cpu = out["cuda"], out["cpu"]
+    assert int(card["stats"].overflowed_tiles) == 0
+    both = card["mask"].cpu() & cpu["mask"]
+    assert int((card["mask"].cpu() != cpu["mask"]).sum()) <= 0.001 * both.numel()
+    assert int(both.sum()) > 1000
+    torch.testing.assert_close(card["depth"].cpu()[both], cpu["depth"][both],
+                               rtol=1e-5, atol=1e-5)
+    torch.testing.assert_close(card["rgb"].cpu()[both], cpu["rgb"][both],
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_kernel_matches_plain_with_mesh_depth_limit_at_rollout_shape(device):
+    """640x480, K=512 (the rollout config), with the box's z-buffer as
+    the per-pixel depth limit."""
+    from robosimgs_tpu_torch.render.gathered import tile_image
+    from robosimgs_tpu_torch.render.mesh_raster import rasterize_mesh
+    from robosimgs_tpu_torch.tools.workloads import rollout_scene
+    g, cams, cfg = rollout_scene(device, n=50_000)
+    cam = cams[0]
+    v, f, c = _box_meshes(device, n=8)[0]
+    tiles_x, tiles_y = num_tiles(cam.width, cam.height, cfg.tile_size)
+    with torch.no_grad():
+        depth = rasterize_mesh(v, f, cam, vertex_colors=c)["depth"]
+        geom, feat, counts, stats = bin_and_gather_packed(
+            project(g, cam, cfg), cam.width, cam.height, cfg)
+    assert int(stats.truncated_gaussians) == 0
+    assert 0.01 < float(torch.isfinite(depth).float().mean()) < 0.9
+    dlim = tile_image(depth, tiles_x, tiles_y, cfg.tile_size,
+                      pad_value=float("inf"))[..., None].contiguous()
+    kw = dict(tiles_x=tiles_x, cfg=cfg, has_dlim=True)
+    got = composite_fwd(geom, feat, counts, dlim, **kw)
+    torch.cuda.synchronize()
+    assert_fwd_agrees(got, composite_fwd_plain(geom, feat, counts, dlim, **kw))

@@ -158,5 +158,17 @@ def test_synthetic_scene_and_mesh_scene():
         _assert_cameras(f.camera, jf.camera)
     again, _ = tdata.synthetic_scene(0, 30, 4, 32, 24, device="cpu")
     assert torch.equal(gt.means, again.means)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tdata.synthetic_mesh_scene(0, 2, 16, 16)
+    # the multi-box mesh scene: the same mesh from the same seed, images
+    # and depth targets within 1e-5 but for at most 0.1 % of the pixels
+    # (centers within f32 rounding of a triangle edge)
+    mesh, mframes = tdata.synthetic_mesh_scene(0, 2, 48, 32, with_depth=True,
+                                               device="cpu")
+    jmesh, jmframes = jdata.synthetic_mesh_scene(0, 2, 48, 32, with_depth=True)
+    np.testing.assert_array_equal(mesh.vertices, jmesh.vertices)
+    np.testing.assert_array_equal(mesh.vertex_colors, jmesh.vertex_colors)
+    for f, jf in zip(mframes, jmframes):
+        _assert_cameras(f.camera, jf.camera)
+        off = ((np.abs(f.image - jf.image) > 1e-5).any(-1)
+               | (np.abs(f.depth - jf.depth) > 1e-5))
+        assert off.mean() <= 1e-3, int(off.sum())
+        assert (f.depth > 0).mean() > 0.2 and f.image.min() < 0.9
