@@ -46,30 +46,48 @@ Phases, each of which raises on a fault (nothing is caught):
                box-with-hinged-lid URDF of 24,576 triangles in front of
                the splats, posed by a trajectory file): zero truncated splats
                on every camera; cli.render_rollout --autotune writes 8 x 4
-               PNGs; render_rollout in process launches the forward
-               kernel once per (step, camera), its frames agree with the
-               CLI's and, at step 0, reach 60 dB against K=8192; no
-               truncated triangle or overflowed mesh tile (at the
-               workload's mesh capacity, 2048) on any step, camera or
-               link; the kernel against its plain version with
-               a mesh depth limit; the card against the CPU path on a
-               small scene; the frame's time, idle share and stage split,
-               and the kernel's time and bound at this shape
+               PNGs, its mesh tile capacity sized from the measured
+               triangle demand; render_rollout in process launches the
+               forward kernel once per (step, camera), its frames agree
+               with the CLI's at >= 60 dB and, at step 0, reach 60 dB
+               against K=8192; no truncated triangle or overflowed mesh
+               tile (at the workload's mesh capacity, 2048, and at the
+               CLI's) on any step, camera or link; the kernel against its
+               plain version with a mesh depth limit; the card against
+               the CPU path on a small scene; the frame's time, idle share
+               and stage split, and the kernel's time and bound at this
+               shape
+  8. policy  — the diffusion policy at DiffusionPolicyConfig's defaults
+               (96x96, two frames, horizon 16, embed 256, hidden 512, 4
+               FiLM blocks, 100 diffusion steps; one joint): a dataset of
+               open-close episodes at four speeds rendered by
+               render_rollout through one 96x96 camera (the rollout
+               scene and object, capacities autotuned); PolicyTrainer at
+               batch 64 (the loss falls; step time by CUDA events and host
+               wall, kernels per step and idle share, the host batch's
+               gather and copy, and each layer's time); forward and
+               gradients on the card against the CPU path in both encoder
+               heads; predict at B=1 with 16 and 100 steps; run_closed_loop
+               for 8 steps with an ensembling ActionChunker, exactly 9
+               forward kernel launches, the kernel against its plain
+               version on an observation, its time and bound at that
+               shape; cli.render_rollout at 640x480 -> cli.train_policy ->
+               policy.pt reloaded and predicting
 The line before the last lists the kernels; the last line is the result.
 Exits non-zero without a CUDA device.
 """
 
 from __future__ import annotations
 
+import contextlib
+import io
 import json
 import math
 import os
-import struct
 import subprocess
 import sys
 import tempfile
 import time
-import zlib
 
 # H100 SXM peaks (NVIDIA data sheet): FP32 outside the tensor cores, HBM3
 PEAK_FP32_FLOPS = 67e12
@@ -265,24 +283,6 @@ def fwd_bound(geom, counts, nblk, dlim, tiles_x, cfg):
     return max(ops_ms, bytes_ms), bound_by, detail, work
 
 
-def read_png_rgb(path):
-    """Pixels of an 8-bit RGB PNG written unfiltered (cli.render.write_png)."""
-    import numpy as np
-    with open(path, "rb") as f:
-        data = f.read()
-    pos, idat, w, h = 8, b"", 0, 0
-    while pos < len(data):
-        n, tag = struct.unpack(">I4s", data[pos:pos + 8])
-        body = data[pos + 8:pos + 8 + n]
-        if tag == b"IHDR":
-            w, h = struct.unpack(">II", body[:8])
-        elif tag == b"IDAT":
-            idat += body
-        pos += 12 + n
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    return raw[:, 1:].reshape(h, w, 3)
-
-
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -313,6 +313,7 @@ def main() -> int:
     from robosimgs_tpu_torch.tools.workloads import (BENCH_GAUSSIANS,
                                                      bench_scene, orbit_views,
                                                      saturated_scene, time_ms)
+    from robosimgs_tpu_torch.utils.imresize import read_png_rgb
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -757,6 +758,8 @@ def main() -> int:
 
     # 7. the rollout path
     roll = rollout(dev, smi)
+    # 8. the policy stage
+    pol = policy(dev, smi)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
@@ -764,13 +767,19 @@ def main() -> int:
         "source": "robosimgs_tpu_torch/csrc/composite_fwd.cu",
         "replaces": "robosimgs_tpu/render/pallas_kernels.py:138",
         "launches": launches_train[0], "max_abs_err": max(
-            err_a, err_b, err_cli, err_skip, roll["max_abs_err"]),
+            err_a, err_b, err_cli, err_skip, roll["max_abs_err"],
+            pol["max_abs_err"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "rollout_launches": roll["launches"], "rollout_ms": roll["ms"],
         "rollout_plain_ms": roll["plain_ms"],
         "rollout_bound_ms": roll["bound_ms"],
-        "rollout_bound_by": roll["bound_by"]}, {
+        "rollout_bound_by": roll["bound_by"],
+        "closed_loop_launches": pol["launches"],
+        "closed_loop_max_abs_err": pol["max_abs_err"],
+        "closed_loop_ms": pol["ms"], "closed_loop_plain_ms": pol["plain_ms"],
+        "closed_loop_bound_ms": pol["bound_ms"],
+        "closed_loop_bound_by": pol["bound_by"]}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "robosimgs_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "robosimgs_tpu/render/pallas_kernels.py:221",
@@ -815,6 +824,7 @@ def rollout(dev, smi: str) -> dict:
                                                      write_rollout_inputs,
                                                      write_rollout_object)
     from robosimgs_tpu_torch.train.io_ply import save_ply
+    from robosimgs_tpu_torch.utils.imresize import read_png_rgb
 
     t7 = time.perf_counter()
     g, cams, cfg = rollout_scene(dev)
@@ -845,13 +855,18 @@ def rollout(dev, smi: str) -> dict:
         out_dir = os.path.join(tmp, "frames")
         composite_fwd.launches = 0
         t_cli = time.perf_counter()
-        cli_rollout.main(["--scene", scene, "--urdf", urdf, "--trajectory",
-                          traj_path, "--cameras", cams_path, "--steps",
-                          str(ROLLOUT_STEPS), "--n-cameras", str(n_cam),
-                          "--width", str(W), "--height", str(H),
-                          "--autotune", "--output", out_dir])
+        printed = io.StringIO()
+        with contextlib.redirect_stdout(printed):
+            cli_rollout.main(["--scene", scene, "--urdf", urdf,
+                              "--trajectory", traj_path, "--cameras",
+                              cams_path, "--steps", str(ROLLOUT_STEPS),
+                              "--n-cameras", str(n_cam), "--width", str(W),
+                              "--height", str(H), "--autotune", "--output",
+                              out_dir])
         torch.cuda.synchronize()
         cli_s = time.perf_counter() - t_cli
+        log(printed.getvalue().rstrip())
+        cli_mesh_k = int(printed.getvalue().split("mesh_K=")[1].split()[0])
         names = sorted(f for f in os.listdir(out_dir) if f.endswith(".png"))
         if len(names) != ROLLOUT_STEPS * n_cam:
             raise AssertionError(f"the rollout CLI wrote {len(names)} PNGs")
@@ -860,7 +875,7 @@ def rollout(dev, smi: str) -> dict:
             for t in range(ROLLOUT_STEPS)])
     log(f"  cli.render_rollout --autotune: {len(names)} PNGs {W}x{H} in "
         f"{cli_s:.1f} s, launches {composite_fwd.launches} (autotune's "
-        f"gate renders included)")
+        f"gate renders included), mesh tile capacity {cli_mesh_k}")
 
     # the main path in process: one forward launch per (step, camera)
     composite_fwd.launches = composite_bwd.launches = 0
@@ -882,8 +897,9 @@ def rollout(dev, smi: str) -> dict:
     cli_db = min(psnr(torch.from_numpy(cli_frames[:, c] / 255.0),
                       torch.from_numpy(q[:, c] / 255.0)) for c in range(n_cam))
     log(f"  the lid moves: max change {moved:.3f}; CLI PNGs (autotuned "
-        f"capacities) against the in-process frames: {cli_db:.1f} dB")
-    if moved < 1e-2 or cli_db < 40.0:
+        f"capacities) against the in-process frames (mesh capacity "
+        f"{ROLLOUT_MESH.tile_capacity}): {cli_db:.1f} dB")
+    if moved < 1e-2 or cli_db < 60.0:
         raise AssertionError("rollout frames do not move or the CLI's differ")
 
     # every (step, camera, link): no truncated triangle, no overflowed tile
@@ -916,6 +932,9 @@ def rollout(dev, smi: str) -> dict:
         f"object covers {min(cover):.3f}-{max(cover):.3f} of a view")
     if min(cover) < 0.01:
         raise AssertionError("the object occludes nothing in some view")
+    if worst > cli_mesh_k:
+        raise AssertionError(f"the CLI's mesh capacity {cli_mesh_k} "
+                             f"overflows: a tile wants {worst}")
 
     # against the lossless render (K=8192) at step 0
     cfg_ll = type(cfg)(**{**cfg.__dict__, "tile_capacity": 8192})
@@ -1043,6 +1062,322 @@ def rollout(dev, smi: str) -> dict:
         f"{time.perf_counter() - t7:.1f} s")
     return {"launches": launches[0], "max_abs_err": err, "ms": kernel_ms,
             "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def device_busy(run, n: int):
+    """(device busy ms per call, kernels per call) of run() over n calls,
+    from the profiler's device-side events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(n):
+            run()
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in events) / 1e3 / n,
+            sum(e.count for e in events) / n)
+
+
+def wall_ms(run, n: int) -> float:
+    """Host wall ms per call of run() over n calls, ending in a sync."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        run()
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) * 1e3 / n
+
+
+def policy(dev, smi: str) -> dict:
+    """Phase 8: the policy stage at DiffusionPolicyConfig's defaults with
+    one joint (the rollout object's hinge). Renders a dataset with
+    render_rollout, trains PolicyTrainer, holds the card against the CPU
+    path, times sampling, runs the closed loop in the renderer (the
+    forward kernel once per observation) and the CLI chain; every check
+    raises. Returns the forward kernel's numbers at the closed-loop
+    shape."""
+    import numpy as np
+    import torch
+
+    from robosimgs_tpu_torch.cli import render_rollout as cli_rollout
+    from robosimgs_tpu_torch.cli import train_policy as cli_policy
+    from robosimgs_tpu_torch.core.camera import Camera
+    from robosimgs_tpu_torch.policy.diffusion import (DiffusionPolicy,
+                                                      DiffusionPolicyConfig,
+                                                      NoiseSchedule)
+    from robosimgs_tpu_torch.policy.inference import ActionChunker
+    from robosimgs_tpu_torch.policy.rollout_eval import run_closed_loop
+    from robosimgs_tpu_torch.policy.trainer import (PolicyTrainConfig,
+                                                    PolicyTrainer,
+                                                    RolloutDataset,
+                                                    load_policy,
+                                                    policy_loss,
+                                                    predict_actions)
+    from robosimgs_tpu_torch.render.autotune import (mesh_demand,
+                                                     mesh_tile_capacity,
+                                                     recommend_capacities)
+    from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
+    from robosimgs_tpu_torch.render.compose import merge_mesh_layers
+    from robosimgs_tpu_torch.render.gathered import tile_image
+    from robosimgs_tpu_torch.render.kernels import (composite_fwd,
+                                                    composite_fwd_plain)
+    from robosimgs_tpu_torch.render.mesh_raster import (MeshRasterConfig,
+                                                        rasterize_mesh)
+    from robosimgs_tpu_torch.render.project import project
+    from robosimgs_tpu_torch.render.tiles import num_tiles
+    from robosimgs_tpu_torch.scenegen.rollout import (ArticulatedObject,
+                                                      open_close_trajectory,
+                                                      render_rollout,
+                                                      rollout_meshes)
+    from robosimgs_tpu_torch.scenegen.trajectory import load_trajectory
+    from robosimgs_tpu_torch.tools.workloads import (ROLLOUT_BASE,
+                                                     ROLLOUT_CAMERAS,
+                                                     rollout_scene, time_ms,
+                                                     write_rollout_inputs,
+                                                     write_rollout_object)
+    from robosimgs_tpu_torch.train.io_ply import save_ply
+
+    t8 = time.perf_counter()
+    g, _, _ = rollout_scene(dev)
+    spec = ROLLOUT_CAMERAS[0]
+    cam = Camera.look_at(spec["eye"], spec["target"], spec["up"], spec["fov"],
+                         96, 96, device=dev)
+    base = np.eye(4, dtype=np.float32)
+    base[:3, 3] = ROLLOUT_BASE
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = ArticulatedObject.from_urdf(write_rollout_object(tmp),
+                                          base_pose=base)
+
+    # 1. data: open-close sweeps of the hinge at four speeds
+    lengths = (24, 32, 40, 48)
+    trajs = [open_close_trajectory(obj.model, n) for n in lengths]
+    cfg = recommend_capacities(g, [cam], gate_db=60.0)
+    demand = mesh_demand(rollout_meshes([obj], np.concatenate(trajs),
+                                        device=dev), [cam])
+    mesh_cfg = MeshRasterConfig(
+        tile_capacity=mesh_tile_capacity(demand["max_tile_count"]))
+    t0 = time.perf_counter()
+    frames = [render_rollout(g, [obj], tr, [cam], cfg=cfg, mesh_cfg=mesh_cfg)
+              for tr in trajs]
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    images = np.concatenate([f[:, 0] for f in frames])
+    states = np.concatenate(trajs)
+    actions = np.concatenate([np.concatenate([t[1:], t[-1:]]) for t in trajs])
+    ds = RolloutDataset(images=images, states=states, actions=actions,
+                        episode_ends=list(np.cumsum(lengths)))
+    n_frames = len(images)
+    log(f"[8 policy] {smi}: dataset {len(lengths)} episodes, {n_frames} "
+        f"frames 96x96 rendered in {render_s:.2f} s "
+        f"({render_s / n_frames * 1e3:.2f} ms/frame; K={cfg.tile_capacity}, "
+        f"mesh tile capacity {mesh_cfg.tile_capacity} for up to "
+        f"{demand['max_tile_count']} triangles a tile, truncated triangles "
+        f"{demand['truncated_triangles']}); images std {images.std():.3f}")
+    if not np.isfinite(images).all() or images.std() < 1e-2:
+        raise AssertionError("the policy dataset is blank or not finite")
+
+    # 2. training at batch 64
+    pc = DiffusionPolicyConfig(action_dim=1, state_dim=1)
+    n_train = 300
+    tcfg = PolicyTrainConfig(policy=pc, lr=3e-4, warmup_steps=30,
+                             total_steps=n_train, batch_size=64)
+    trainer = PolicyTrainer(tcfg, ds, seed=0)
+    n_params = sum(p.numel() for p in trainer.model.parameters())
+    trainer.run(20, log_every=10, progress=False)       # warmup
+    t0 = time.perf_counter()
+    trainer.run(n_train - 20, log_every=10, progress=False)
+    torch.cuda.synchronize()
+    run_ms = (time.perf_counter() - t0) * 1e3 / (n_train - 20)
+    losses = [h["loss"] for h in trainer.history]
+    first, last = float(np.mean(losses[:3])), float(np.mean(losses[-3:]))
+    log(f"  PolicyTrainer {n_params} parameters, {n_train} steps at batch "
+        f"{tcfg.batch_size}: PolicyTrainer.run {run_ms:.4f} ms/step host wall"
+        f" (host batch gather, copy, step and a loss sync every 10 steps), "
+        f"{tcfg.batch_size / run_ms * 1e3:.1f} samples/s; loss first 3 logs "
+        f"{first:.4f}, last 3 {last:.4f}")
+    if not all(np.isfinite(losses)) or not last < 0.7 * first:
+        raise AssertionError(f"the policy loss did not fall: {losses}")
+
+    # the step on one device batch, and its layers (a second trainer, so
+    # that the timing does not train the evaluated one)
+    timer = PolicyTrainer(tcfg, ds, seed=1)
+    batch = timer.sample_batch()
+    nbytes = sum(x.nbytes for x in batch)
+    xb = timer.to_device(batch)
+    step_ms = time_ms(lambda: timer.train_step(*xb), reps=50)
+    step_wall = wall_ms(lambda: timer.train_step(*xb), 50)
+    busy, n_kern = device_busy(lambda: timer.train_step(*xb), 5)
+    copy_ms = time_ms(lambda: timer.to_device(batch), reps=20)
+    gather_ms = wall_ms(timer.sample_batch, 20)
+    m = timer.model
+    bs = tcfg.batch_size
+    t_d = torch.randint(0, 100, (bs,), device=dev)
+    noise = torch.randn(xb[2].shape, device=dev)
+    with torch.no_grad():
+        emb = m.encode(xb[0], xb[1])
+        noisy = timer.schedule.add_noise(xb[2], noise, t_d)
+        enc_ms = time_ms(lambda: m.encode(xb[0], xb[1]), reps=50)
+        den_ms = time_ms(lambda: m.denoise(noisy, t_d, emb), reps=50)
+
+    def fwd_bwd():
+        timer.optimizer.zero_grad(set_to_none=True)
+        policy_loss(m, *xb, t_d, noise, timer.schedule).backward()
+
+    fb_ms = time_ms(fwd_bwd, reps=50)
+    upd_ms = time_ms(timer.apply_update, reps=50)
+    log(f"  train step on a device batch: {step_ms:.4f} ms (CUDA events), "
+        f"host wall {step_wall:.4f} ms, device busy {busy:.4f} ms "
+        f"(profiler, {n_kern:.0f} kernels/step), idle share "
+        f"{1 - busy / step_wall:.3f}; {bs / step_wall * 1e3:.1f} samples/s")
+    log(f"  layers (ms, CUDA events): encoder fwd {enc_ms:.4f}, denoiser fwd "
+        f"{den_ms:.4f}, loss fwd+bwd {fb_ms:.4f}, AdamW + EMA {upd_ms:.4f}; "
+        f"host batch gather {gather_ms:.4f} ms (host wall), host-to-device "
+        f"copy of {nbytes} B {copy_ms:.4f} ms "
+        f"({nbytes / copy_ms / 1e6:.2f} GB/s)")
+
+    # 3. the card against the CPU path, both encoder heads
+    gen = torch.Generator().manual_seed(0)
+    imgs = torch.rand((8, 2, 96, 96, 3), generator=gen)
+    sts = torch.randn((8, 2, 1), generator=gen)
+    acts = torch.rand((8, 16, 1), generator=gen) * 2 - 1
+    tt = torch.randint(0, 100, (8,), generator=gen)
+    nz = torch.randn((8, 16, 1), generator=gen)
+    for ss in (False, True):
+        pcs = DiffusionPolicyConfig(action_dim=1, state_dim=1,
+                                    spatial_softmax=ss)
+        ref = DiffusionPolicy(pcs, torch.Generator().manual_seed(2))
+        out, grads = {}, {}
+        for d in ("cpu", "cuda"):
+            md = DiffusionPolicy(pcs).to(d)
+            md.load_state_dict(ref.state_dict())
+            args = [x.to(d) for x in (imgs, sts, acts, tt, nz)]
+            with torch.no_grad():
+                out[d] = md(args[0], args[1], args[2], args[3]).cpu()
+            policy_loss(md, *args, NoiseSchedule.make(pcs, d)).backward()
+            grads[d] = {k: p.grad.cpu() for k, p in md.named_parameters()}
+        f_err = float((out["cuda"] - out["cpu"]).abs().max()) \
+            / float(out["cpu"].abs().max())
+        g_err = max(float((grads["cuda"][k] - w).abs().max())
+                    / float(w.abs().max()) for k, w in grads["cpu"].items())
+        log(f"  card vs CPU, {'spatial softmax' if ss else 'average pool'} "
+            f"head: forward max|err| {f_err:.3e} of its largest value, "
+            f"gradients {g_err:.3e} of each tensor's largest (worst)")
+        if f_err > 1e-4 or g_err > 1e-3:
+            raise AssertionError("the policy on the card disagrees with "
+                                 "the CPU path")
+
+    # 4. sampling latency at B = 1
+    obs_i = ds.images[None, :2]
+    obs_s = ds.states[None, :2]
+    lat = {}
+    for n in (16, 100):
+        trainer.predict(obs_i, obs_s, n_steps=n)              # warm
+        lat[n] = (wall_ms(lambda: trainer.predict(obs_i, obs_s, n_steps=n),
+                          10),
+                  device_busy(lambda: trainer.predict(obs_i, obs_s,
+                                                      n_steps=n), 2))
+    log("  predict at B=1: " + "; ".join(
+        f"{n} steps {w:.4f} ms/call host wall, device busy {b:.4f} ms, "
+        f"{k:.0f} kernels/call" for n, (w, (b, k)) in lat.items()))
+
+    # 5. the closed loop in the renderer: one forward launch per
+    # observation (steps + 1) on the one camera
+    chunker = ActionChunker(trainer.predict, obs_horizon=2, horizon=16,
+                            ensemble=True)
+    n_loop = 8
+    composite_fwd.launches = 0
+    t0 = time.perf_counter()
+    res = run_closed_loop(trainer.predict, g, obj, [cam], steps=n_loop,
+                          q0=trajs[0][0], cfg=cfg, mesh_cfg=mesh_cfg,
+                          chunker=chunker, target_q=trajs[0][len(trajs[0]) // 2])
+    torch.cuda.synchronize()
+    loop_ms = (time.perf_counter() - t0) * 1e3 / n_loop
+    launches = composite_fwd.launches
+    log(f"  run_closed_loop {n_loop} steps (ensembling ActionChunker, "
+        f"{chunker.n_inferences} inferences of 16 steps): {loop_ms:.4f} "
+        f"ms/step host wall, composite_fwd launches {launches}, joints "
+        + " ".join(f"{q:.3f}" for q in res.joint_history[:, 0])
+        + f", final error {res.final_error:.4f}")
+    if launches != n_loop + 1:
+        raise AssertionError(f"the closed loop launched the forward kernel "
+                             f"{launches} times, want {n_loop + 1}")
+    if res.frames.shape != (n_loop, 1, 96, 96, 3) \
+            or not np.isfinite(res.joint_history).all():
+        raise AssertionError("closed-loop result misshapen or not finite")
+    # the kernel against its plain version on the last observation
+    tx, ty = num_tiles(96, 96, cfg.tile_size)
+    with torch.no_grad():
+        meshes = obj.posed_meshes(res.joint_history[-1], device=dev)
+        m_out = merge_mesh_layers([
+            {k: o[k] for k in ("rgb", "depth", "mask", "face_id")}
+            for o in (rasterize_mesh(v, f, cam, vertex_colors=c,
+                                     cfg=mesh_cfg) for v, f, c in meshes)])
+        geom, feat, counts, _ = bin_and_gather_packed(project(g, cam, cfg),
+                                                      96, 96, cfg)
+        dlim = tile_image(m_out["depth"], tx, ty, cfg.tile_size,
+                          pad_value=float("inf"))[..., None].contiguous()
+        kw = dict(tiles_x=tx, cfg=cfg, has_dlim=True)
+        got = composite_fwd(geom, feat, counts, dlim, **kw)
+        torch.cuda.synchronize()
+        err, _ = compare_fwd(got, composite_fwd_plain(geom, feat, counts,
+                                                      dlim, **kw),
+                             "closed-loop observation 96x96 mesh depth limit")
+        k_ms = time_ms(lambda: composite_fwd(geom, feat, counts, dlim, **kw),
+                       reps=200)
+        p_ms = time_ms(lambda: composite_fwd_plain(geom, feat, counts, dlim,
+                                                   **kw), reps=10)
+        bound_ms, bound_by, detail, _ = fwd_bound(geom, counts, got[2], dlim,
+                                                  tx, cfg)
+    log(f"  composite_fwd at the closed-loop shape (T={geom.shape[0]}, "
+        f"K={geom.shape[2]}, mesh depth limit) {k_ms:.4f} ms, plain "
+        f"{p_ms:.4f} ms; bound {bound_ms:.6f} ms ({detail}), share "
+        f"{bound_ms / k_ms:.4f}; library call: none")
+
+    # 6. the CLI chain: render 640x480 frames, train on them, reload
+    with tempfile.TemporaryDirectory() as tmp:
+        urdf = write_rollout_object(tmp)
+        model = ArticulatedObject.from_urdf(urdf).model
+        traj_path, _ = write_rollout_inputs(tmp, model, steps=24)
+        cams_path = os.path.join(tmp, "camera.json")
+        with open(cams_path, "w") as fh:
+            json.dump([spec], fh)
+        scene = os.path.join(tmp, "scene.ply")
+        save_ply(scene, g)
+        frames_dir = os.path.join(tmp, "frames")
+        t0 = time.perf_counter()
+        cli_rollout.main(["--scene", scene, "--urdf", urdf, "--trajectory",
+                          traj_path, "--cameras", cams_path, "--autotune",
+                          "--output", frames_dir])
+        traj_np = os.path.join(tmp, "traj.npy")
+        np.save(traj_np, load_trajectory(traj_path, [model])[0])
+        out_dir = os.path.join(tmp, "policy")
+        cli_policy.main(["--frames", frames_dir, "--trajectory", traj_np,
+                         "--output", out_dir, "--steps", "20"])
+        torch.cuda.synchronize()
+        chain_s = time.perf_counter() - t0
+        with open(os.path.join(out_dir, "train_summary.json")) as fh:
+            summary = json.load(fh)
+        model_l, norm, cfg_l = load_policy(os.path.join(out_dir, "policy.pt"),
+                                           dev)
+        obs, _ = cli_policy.load_episode(frames_dir, traj_np, 0, 96)
+        pred = predict_actions(model_l, NoiseSchedule.make(cfg_l.policy, dev),
+                               norm, obs[None, :2],
+                               np.zeros((1, 2, 1), np.float32),
+                               torch.Generator(dev).manual_seed(0))
+    log(f"  cli.render_rollout 24 x 640x480 -> cli.train_policy 20 steps -> "
+        f"policy.pt reloaded: {chain_s:.1f} s, transitions "
+        f"{summary['transitions']}, loss {summary['history'][0]['loss']:.4f},"
+        f" predicted actions {pred.shape} in [{pred.min():.3f}, "
+        f"{pred.max():.3f}]; phase {time.perf_counter() - t8:.1f} s")
+    if pred.shape != (1, 16, 1) or not np.isfinite(pred).all() \
+            or obs.shape != (24, 96, 96, 3):
+        raise AssertionError("the reloaded policy did not predict")
+    return {"launches": launches, "max_abs_err": err, "ms": k_ms,
+            "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by}
 
 
 if __name__ == "__main__":

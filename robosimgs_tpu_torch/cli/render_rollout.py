@@ -3,7 +3,12 @@ multi-camera frames (the data-generation render stage).
 
 The port of robosimgs_tpu/cli/render_rollout.py, with the same flags
 plus `--device` (default cuda). Frames are written as 8-bit PNGs
-(frame_TTTT_camC.png) by cli/render.py's writer.
+(frame_TTTT_camC.png) by cli/render.py's writer. Unlike the JAX CLI,
+which keeps the mesh rasterizer's default tile capacity whatever the
+meshes, `--autotune` also sizes the mesh tile capacity from the measured
+triangle demand (render/autotune.py::mesh_demand); without it the
+capacity stays the default and any overflowed mesh tiles or truncated
+triangles are reported on stderr.
 
     python -m robosimgs_tpu_torch.cli.render_rollout --scene scene.ply \\
         --urdf object.urdf --steps 16 --n-cameras 4 --autotune --output frames
@@ -12,8 +17,10 @@ plus `--device` (default cuda). Frames are written as 8-bit PNGs
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
+import sys
 
 
 def build_parser():
@@ -36,9 +43,10 @@ def build_parser():
     p.add_argument("--shard-cameras", action="store_true",
                    help="shard cameras over devices (not ported yet)")
     p.add_argument("--autotune", action="store_true",
-                   help="measure the scene against the rollout cameras "
-                        "and render with lossless-fit capacities + the "
-                        "two-tier sort")
+                   help="measure the scene and the posed meshes against "
+                        "the rollout cameras and render with lossless-fit "
+                        "capacities (splat and mesh tiles) + the two-tier "
+                        "sort")
     p.add_argument("--autotune-gate-db", type=float, default=60.0,
                    help="with --autotune: shrink tile_capacity to the "
                         "smallest K whose render matches the full-"
@@ -58,9 +66,14 @@ def main(argv=None):
 
     from robosimgs_tpu_torch.cli.render import write_png
     from robosimgs_tpu_torch.core.camera import Camera
+    from robosimgs_tpu_torch.render.autotune import (mesh_demand,
+                                                     mesh_tile_capacity,
+                                                     recommend_capacities)
+    from robosimgs_tpu_torch.render.mesh_raster import MeshRasterConfig
     from robosimgs_tpu_torch.scenegen.rollout import (ArticulatedObject,
                                                       open_close_trajectory,
-                                                      render_rollout)
+                                                      render_rollout,
+                                                      rollout_meshes)
     from robosimgs_tpu_torch.train.io_ply import load_ply
 
     background = load_ply(args.scene, device=args.device)
@@ -103,18 +116,41 @@ def main(argv=None):
         traj = np.zeros((args.steps, 0), np.float32)
 
     kw = {}
+    mesh_cfg = MeshRasterConfig()
+    demand = None
+    if objects:
+        # the mesh binning's demand over every (step, camera, link): sizes
+        # the tile capacity under --autotune, and is reported otherwise
+        demand = mesh_demand(rollout_meshes(objects, traj, base_poses,
+                                            args.device), cams, mesh_cfg)
     if args.autotune:
-        from robosimgs_tpu_torch.render.autotune import recommend_capacities
         rcfg = recommend_capacities(background, cams,
                                     gate_db=args.autotune_gate_db or None)
-        print(f"autotuned: K={rcfg.tile_capacity} "
-              f"M={rcfg.max_tiles_per_gaussian} "
-              f"bbox={rcfg.bbox_tiles_per_gaussian} "
-              f"two_tier={rcfg.two_tier_split}")
+        line = (f"autotuned: K={rcfg.tile_capacity} "
+                f"M={rcfg.max_tiles_per_gaussian} "
+                f"bbox={rcfg.bbox_tiles_per_gaussian} "
+                f"two_tier={rcfg.two_tier_split}")
         kw["cfg"] = rcfg
+        if demand is not None:
+            mesh_cfg = dataclasses.replace(mesh_cfg, tile_capacity=(
+                mesh_tile_capacity(demand["max_tile_count"])))
+            # the capacity holds the largest tile: none overflows
+            demand["overflowed_tiles"] = 0
+            line += (f" mesh_K={mesh_cfg.tile_capacity} (max triangles a "
+                     f"tile {demand['max_tile_count']})")
+        print(line)
+    if demand and (demand["overflowed_tiles"] or demand["truncated_triangles"]):
+        print(f"render_rollout: mesh binning at tile capacity "
+              f"{mesh_cfg.tile_capacity} drops triangles: "
+              f"{demand['overflowed_tiles']} overflowed tiles (up to "
+              f"{demand['max_tile_count']} triangles a tile), "
+              f"{demand['truncated_triangles']} truncated triangles, summed "
+              f"over steps, cameras and links (--autotune sizes the tile "
+              f"capacity)", file=sys.stderr)
 
     frames = render_rollout(background, objects, traj, cams, impl=args.impl,
-                            base_poses=base_poses, as_uint8=True, **kw)
+                            base_poses=base_poses, as_uint8=True,
+                            mesh_cfg=mesh_cfg, **kw)
     os.makedirs(args.output, exist_ok=True)
     T, C = frames.shape[:2]
     for t in range(T):

@@ -96,6 +96,51 @@ def train_state_from_numpy(d, device, generator=None) -> TrainState:
         generator=generator or torch.Generator().manual_seed(0))
 
 
+def _dense(tree, prefix) -> dict:
+    """A flax Dense (kernel (in, out), bias) as nn.Linear's (out, in)."""
+    return {f"{prefix}.weight": torch.from_numpy(np.array(tree["kernel"]).T),
+            f"{prefix}.bias": torch.from_numpy(np.array(tree["bias"]))}
+
+
+def policy_params_from_numpy(tree) -> dict:
+    """The port's DiffusionPolicy state dict (CPU tensors) from the JAX
+    package's flax parameters as numpy arrays ({"params": ...} or its
+    inner dict). The names follow nn.compact order: encoder Conv_0..3,
+    Dense_0 (state), Dense_1 (head), ss_log_temp; denoiser Dense_0 (t),
+    Dense_1 (cond), Dense_2 (in), FiLMBlock_i {Dense_0 h, Dense_1 scale,
+    Dense_2 shift, LayerNorm_0, Dense_3}, Dense_3 (out). Dense kernels go
+    (in, out) -> (out, in), conv kernels HWIO -> OIHW."""
+    p = tree.get("params", tree)
+    enc, den = p["encoder"], p["denoiser"]
+    sd = {}
+    i = 0
+    while f"Conv_{i}" in enc:
+        conv = enc[f"Conv_{i}"]
+        sd[f"encoder.convs.{i}.weight"] = torch.from_numpy(
+            np.ascontiguousarray(np.array(conv["kernel"]).transpose(3, 2, 0, 1)))
+        sd[f"encoder.convs.{i}.bias"] = torch.from_numpy(np.array(conv["bias"]))
+        i += 1
+    if "ss_log_temp" in enc:
+        sd["encoder.ss_log_temp"] = torch.from_numpy(np.array(enc["ss_log_temp"]))
+    sd.update(_dense(enc["Dense_0"], "encoder.state"))
+    sd.update(_dense(enc["Dense_1"], "encoder.head"))
+    for name, mod in (("Dense_0", "t_proj"), ("Dense_1", "cond"),
+                      ("Dense_2", "inp"), ("Dense_3", "out")):
+        sd.update(_dense(den[name], f"denoiser.{mod}"))
+    i = 0
+    while f"FiLMBlock_{i}" in den:
+        blk, pre = den[f"FiLMBlock_{i}"], f"denoiser.blocks.{i}"
+        for name, mod in (("Dense_0", "h"), ("Dense_1", "scale"),
+                          ("Dense_2", "shift"), ("Dense_3", "out")):
+            sd.update(_dense(blk[name], f"{pre}.{mod}"))
+        sd[f"{pre}.norm.weight"] = torch.from_numpy(
+            np.array(blk["LayerNorm_0"]["scale"]))
+        sd[f"{pre}.norm.bias"] = torch.from_numpy(
+            np.array(blk["LayerNorm_0"]["bias"]))
+        i += 1
+    return sd
+
+
 def to_numpy(x):
     """Any of the port's objects as numpy: tensors as arrays, dataclasses
     and dicts as dicts of their converted fields, anything else as is."""

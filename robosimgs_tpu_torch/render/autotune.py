@@ -13,13 +13,18 @@ package probes with tile_chunk=0 and can return a config whose chunk
 does not divide the gated K); and the first probe, which asks for K up
 to min(N, 2^17) entries per tile, first checks that its (T, K, 16) row
 gather fits the card and raises if not, never lowering K.
+
+The mesh side (new in the port; the JAX package has no mesh capacity
+tuning): `mesh_demand` reads the triangle BinStats of rasterize_mesh over
+a rollout's posed links and cameras, and `mesh_tile_capacity` sizes
+MeshRasterConfig.tile_capacity from it, so that no mesh tile overflows.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional, Sequence
+from typing import Dict, Iterable, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -29,6 +34,8 @@ from robosimgs_tpu_torch.core.types import Gaussians
 from robosimgs_tpu_torch.render.binning import (bin_and_gather_packed,
                                                 per_gaussian_cover)
 from robosimgs_tpu_torch.render.config import RenderConfig
+from robosimgs_tpu_torch.render.mesh_raster import (MeshRasterConfig,
+                                                    rasterize_mesh)
 from robosimgs_tpu_torch.render.project import project
 from robosimgs_tpu_torch.render.tiled import composite_tiled
 from robosimgs_tpu_torch.render.tiles import num_tiles, tile_bbox
@@ -199,3 +206,30 @@ def _gate_capacity(gaussians: Gaussians, cameras: Sequence[Camera],
                 return k
             k *= 2
     return k_full
+
+
+def mesh_demand(mesh_steps: Iterable[List[tuple]], cameras: Sequence[Camera],
+                cfg: MeshRasterConfig = MeshRasterConfig()) -> Dict[str, int]:
+    """The triangle BinStats of rasterize_mesh at cfg over every (step,
+    camera, link) of mesh_steps (per step, a list of posed (vertices,
+    faces, colors), as scenegen/rollout.py's rollout_meshes yields them):
+    the largest per-tile triangle count, and the overflowed tiles and
+    truncated triangles summed."""
+    worst = overflowed = truncated = 0
+    with torch.no_grad():
+        for meshes in mesh_steps:
+            for cam in cameras:
+                for v, f, c in meshes:
+                    st = rasterize_mesh(v, f, cam, vertex_colors=c,
+                                        cfg=cfg)["stats"]
+                    worst = max(worst, int(st.max_tile_count))
+                    overflowed += int(st.overflowed_tiles)
+                    truncated += int(st.truncated_gaussians)
+    return {"max_tile_count": worst, "overflowed_tiles": overflowed,
+            "truncated_triangles": truncated}
+
+
+def mesh_tile_capacity(max_tile_count: int) -> int:
+    """The smallest power of two that holds max_tile_count triangles: a
+    mesh tile capacity at which no measured tile overflows."""
+    return 1 << max(0, max_tile_count - 1).bit_length()

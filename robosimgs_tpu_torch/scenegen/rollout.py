@@ -16,7 +16,7 @@ not ported yet (ROADMAP queue 1 item 5).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, Iterator, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -83,6 +83,26 @@ def _quantize_u8(rgb: torch.Tensor) -> torch.Tensor:
     return torch.clamp(torch.round(rgb * 255.0), 0, 255).to(torch.uint8)
 
 
+def rollout_meshes(objects: Sequence[ArticulatedObject],
+                   trajectory: np.ndarray,
+                   base_poses: Optional[np.ndarray] = None,
+                   device="cuda") -> Iterator[List[tuple]]:
+    """Per timestep, the posed (vertices, faces, colors) of every link of
+    every object on `device`: the meshes render_rollout draws (trajectory
+    columns are the objects' movable joints in order; a base pose with a
+    NaN entry is the object's resting pose)."""
+    dof_split = np.cumsum([o.model.dof for o in objects])[:-1] if objects else []
+    for t in range(trajectory.shape[0]):
+        qs = np.split(np.asarray(trajectory[t]), dof_split) if objects else []
+        meshes = []
+        for i, (obj, q) in enumerate(zip(objects, qs)):
+            base = base_poses[t, i] if base_poses is not None else None
+            if base is not None and np.isnan(base).any():
+                base = None   # never listed in the trajectory: resting pose
+            meshes.extend(obj.posed_meshes(q, base_pose=base, device=device))
+        yield meshes
+
+
 def render_rollout(
     background: Gaussians,
     objects: Sequence[ArticulatedObject],
@@ -118,17 +138,9 @@ def render_rollout(
                 else torch.as_tensor(background_color, dtype=torch.float32,
                                      device=dev))
     cameras = [c.to(dev) for c in cameras]
-    dof_split = np.cumsum([o.model.dof for o in objects])[:-1] if objects else []
     frames = []
     with torch.no_grad():
-        for t in range(trajectory.shape[0]):
-            qs = np.split(np.asarray(trajectory[t]), dof_split) if objects else []
-            meshes = []
-            for i, (obj, q) in enumerate(zip(objects, qs)):
-                base = base_poses[t, i] if base_poses is not None else None
-                if base is not None and np.isnan(base).any():
-                    base = None   # never listed in the trajectory: resting pose
-                meshes.extend(obj.posed_meshes(q, base_pose=base, device=dev))
+        for meshes in rollout_meshes(objects, trajectory, base_poses, dev):
             frame = torch.stack([
                 render_composite(background, cam, meshes, cfg, mesh_cfg,
                                  background=bg_color, impl=impl)["rgb"]

@@ -1,5 +1,6 @@
-"""The CUDA compositing kernels against their plain torch versions, and
-one train step through them, on the card.
+"""The CUDA compositing kernels against their plain torch versions, one
+train step through them, and the diffusion policy's forward and train
+step, on the card.
 
 Marked `cuda`; every test skips without a CUDA device (decided in the
 fixture, never at import). On a machine with an H100, nvcc and no JAX:
@@ -304,3 +305,59 @@ def test_kernel_matches_plain_with_mesh_depth_limit_at_rollout_shape(device):
     got = composite_fwd(geom, feat, counts, dlim, **kw)
     torch.cuda.synchronize()
     assert_fwd_agrees(got, composite_fwd_plain(geom, feat, counts, dlim, **kw))
+
+
+@pytest.mark.parametrize("ss", [False, True], ids=["gap", "spatial_softmax"])
+def test_policy_forward_and_train_step_on_card_match_cpu(device, ss):
+    """The diffusion policy at its full width (96x96, two frames, one
+    joint): the forward and one train step's loss, gradients and updated
+    weights on the card against the CPU path, from the same weights and
+    draws; TF32 is off, so both are f32."""
+    import numpy as np
+
+    from robosimgs_tpu_torch.policy.diffusion import (DiffusionPolicy,
+                                                      DiffusionPolicyConfig,
+                                                      NoiseSchedule)
+    from robosimgs_tpu_torch.policy.trainer import (PolicyTrainConfig,
+                                                    PolicyTrainer,
+                                                    RolloutDataset,
+                                                    policy_loss)
+
+    pc = DiffusionPolicyConfig(action_dim=1, state_dim=1, spatial_softmax=ss)
+    g = torch.Generator().manual_seed(0)
+    b = 8
+    images = torch.rand((b, 2, 96, 96, 3), generator=g)
+    states = torch.randn((b, 2, 1), generator=g)
+    actions = torch.rand((b, 16, 1), generator=g) * 2 - 1
+    t = torch.randint(0, 100, (b,), generator=g)
+    noise = torch.randn((b, 16, 1), generator=g)
+    model = DiffusionPolicy(pc)
+    out, grads = {}, {}
+    for d in ("cpu", "cuda"):
+        m = DiffusionPolicy(pc).to(d)
+        m.load_state_dict(model.state_dict())
+        args = [x.to(d) for x in (images, states, actions, t, noise)]
+        with torch.no_grad():
+            out[d] = m(args[0], args[1], actions.to(d), t.to(d)).cpu()
+        policy_loss(m, *args, NoiseSchedule.make(pc, d)).backward()
+        grads[d] = {k: p.grad.cpu() for k, p in m.named_parameters()}
+    assert float((out["cuda"] - out["cpu"]).abs().max()) \
+        <= 1e-4 * float(out["cpu"].abs().max())
+    for k, want in grads["cpu"].items():
+        assert float((grads["cuda"][k] - want).abs().max()) \
+            <= 1e-3 * float(want.abs().max()), k
+    # PolicyTrainer steps on the card from host batches: finite losses,
+    # the weights move, the EMA follows
+    rng = np.random.default_rng(0)
+    ds = RolloutDataset(images=rng.uniform(size=(40, 96, 96, 3)).astype(
+        np.float32), states=rng.normal(size=(40, 1)).astype(np.float32),
+        actions=rng.normal(size=(40, 1)).astype(np.float32),
+        episode_ends=[40])
+    tr = PolicyTrainer(PolicyTrainConfig(policy=pc, warmup_steps=1,
+                                         batch_size=b), ds)
+    w0 = tr.model.denoiser.out.weight.detach().clone()
+    tr.run(steps=3, log_every=1, progress=False)
+    assert all(np.isfinite(h["loss"]) for h in tr.history)
+    assert tr.count == 3 and tr.model.denoiser.out.weight.is_cuda
+    assert not torch.equal(tr.model.denoiser.out.weight, w0)
+    assert not torch.equal(tr.ema_model.denoiser.out.weight, w0)

@@ -1,5 +1,7 @@
 """The port stands alone: no file under robosimgs_tpu_torch/ imports JAX,
-its relatives, or the JAX package."""
+its relatives, or the JAX package; Pillow, which the card's machine does
+not have, is imported by no module at module level and nowhere on the
+policy path."""
 
 import ast
 from pathlib import Path
@@ -36,4 +38,19 @@ def test_chip_smoke_imports_no_jax():
     bad = [f"chip_smoke.py:{line} imports {mod}"
            for mod, line in _imported_roots(ast.parse(script.read_text()))
            if mod in FORBIDDEN]
+    assert not bad, bad
+
+
+def test_no_pillow_at_module_level_nor_on_the_policy_path():
+    root = Path(robosimgs_tpu_torch.__file__).parent
+    bad = []
+    for f in sorted(root.rglob("*.py")):
+        rel = f.relative_to(root).as_posix()
+        tree = ast.parse(f.read_text())
+        on_path = rel.startswith("policy/") or rel in (
+            "cli/train_policy.py", "utils/imresize.py")
+        top = {n.lineno for n in tree.body}      # module-level statements
+        bad += [f"{rel}:{line} imports PIL"
+                for mod, line in _imported_roots(tree)
+                if mod == "PIL" and (on_path or line in top)]
     assert not bad, bad

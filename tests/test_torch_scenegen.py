@@ -315,3 +315,86 @@ def test_cli_render_rollout_cpu(tmp_path, urdf_path):
     with pytest.raises(SystemExit, match="not ported"):
         cli_rollout.main(["--scene", scene, "--shard-cameras", "--device",
                           "cpu", "--output", str(out)])
+
+
+def _dense_lid_inputs(tmp_path):
+    """The rollout workload's object (tools/workloads.py) with 16x16-quad
+    box faces, at its resting place, seen by one 48x32 camera: its thin
+    lid sides pile up to ~1,600 triangle bboxes in a 16x16 tile, past
+    the default capacity 512. Returns (scene .ply, URDF, trajectory,
+    cameras json, in-process inputs)."""
+    from robosimgs_tpu_torch.core.camera import Camera
+    from robosimgs_tpu_torch.core.types import Gaussians
+    from robosimgs_tpu_torch.tools import workloads
+    from robosimgs_tpu_torch.train.io_ply import save_ply
+
+    urdf = workloads.write_rollout_object(str(tmp_path), n=16)
+    obj = rollout.ArticulatedObject.from_urdf(urdf)
+    cam_spec = [dict(workloads.ROLLOUT_CAMERAS[0], width=48, height=32)]
+    cams_path = tmp_path / "cams.json"
+    cams_path.write_text(json.dumps(cam_spec))
+    traj_path, _ = workloads.write_rollout_inputs(str(tmp_path), obj.model,
+                                                  steps=2)
+    bg = Gaussians.random(torch.Generator().manual_seed(4), 80, sh_degree=1,
+                          extent=1.5, device="cpu")
+    scene = str(tmp_path / "scene.ply")
+    save_ply(scene, bg)
+    traj, poses = trajectory.load_trajectory(traj_path, [obj.model])
+    cams = [Camera.look_at(c["eye"], c["target"], c["up"], c["fov"],
+                          c["width"], c["height"], device="cpu")
+            for c in cam_spec]
+    return (scene, urdf, traj_path, str(cams_path)), (bg, obj, traj, poses,
+                                                      cams)
+
+
+def _cli_frames(out):
+    from robosimgs_tpu_torch.utils.imresize import read_png_rgb
+    return np.stack([read_png_rgb(str(out / f"frame_{t:04d}_cam0.png"))
+                     for t in range(2)])[:, None]
+
+
+@pytest.mark.parametrize("autotune", [True, False],
+                         ids=["autotune", "default_capacity"])
+def test_cli_render_rollout_mesh_capacity(tmp_path, capsys, autotune):
+    """--autotune sizes the mesh tile capacity from the measured triangle
+    demand (no tile overflows; the frames are the in-process render at
+    that capacity); without it the frames stay the default capacity's
+    and the overflow is reported on stderr."""
+    from robosimgs_tpu_torch.render.autotune import (mesh_demand,
+                                                     mesh_tile_capacity)
+    from robosimgs_tpu_torch.render.mesh_raster import MeshRasterConfig
+
+    (scene, urdf, traj_path, cams_path), (bg, obj, traj, poses, cams) = \
+        _dense_lid_inputs(tmp_path)
+    demand = mesh_demand(rollout.rollout_meshes([obj], traj, poses, "cpu"),
+                         cams)
+    assert demand["max_tile_count"] > 512 and demand["overflowed_tiles"] > 0
+    assert demand["truncated_triangles"] == 0
+    out = tmp_path / "frames"
+    cli_rollout.main(["--scene", scene, "--urdf", urdf, "--trajectory",
+                      traj_path, "--cameras", cams_path, "--device", "cpu",
+                      "--output", str(out)] + (["--autotune"] if autotune
+                                               else []))
+    printed = capsys.readouterr()
+    K = mesh_tile_capacity(demand["max_tile_count"]) if autotune else 512
+    mesh_cfg = MeshRasterConfig(tile_capacity=K)
+    if autotune:
+        assert K >= demand["max_tile_count"] and K // 2 < demand["max_tile_count"]
+        assert f"mesh_K={K}" in printed.out
+        assert "overflowed" not in printed.err
+        sized = mesh_demand(rollout.rollout_meshes([obj], traj, poses, "cpu"),
+                            cams, mesh_cfg)
+        assert sized["overflowed_tiles"] == 0
+        cfg = recommend_capacities(bg, cams, gate_db=60.0)
+    else:
+        assert (f"{demand['overflowed_tiles']} overflowed tiles"
+                in printed.err)
+        cfg = RenderConfig()
+    want = rollout.render_rollout(bg, [obj], traj, cams, cfg=cfg,
+                                  mesh_cfg=mesh_cfg, base_poses=poses,
+                                  as_uint8=True)
+    np.testing.assert_array_equal(_cli_frames(out), want)
+    if autotune:   # the sized capacity keeps triangles the default drops
+        lossy = rollout.render_rollout(bg, [obj], traj, cams, cfg=cfg,
+                                       base_poses=poses, as_uint8=True)
+        assert (lossy != want).any()
