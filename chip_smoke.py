@@ -73,6 +73,19 @@ Phases, each of which raises on a fault (nothing is caught):
                version on an observation, its time and bound at that
                shape; cli.render_rollout at 640x480 -> cli.train_policy ->
                policy.pt reloaded and predicting
+  9. artic   — the articulation toolchain at full width (the open box of
+               tools/workloads.py: a 100-quad body and a 65-quad lid,
+               87,342 vertices, 170,700 triangles, the lid opened 60
+               degrees): HingeDetector on the card and on the CPU (contact
+               counts and flips, the axis along x and the position on the
+               edge); the six canonical 800x800 views with markers (ms, the
+               triangle stats and mesh_demand per view; the front view
+               against the CPU path); ArticulationPipeline with a scripted
+               MLLM and a URDF that validates; the bake of six unshaded
+               views back to the vertex colours; depth_map_from_points on
+               1M surface samples against the CPU and the z-buffer; the
+               estimate_physics, visualize_parts and validate_urdf CLIs on
+               those outputs. No compositing kernel runs on this path.
 The line before the last lists the kernels; the last line is the result.
 Exits non-zero without a CUDA device.
 """
@@ -760,6 +773,8 @@ def main() -> int:
     roll = rollout(dev, smi)
     # 8. the policy stage
     pol = policy(dev, smi)
+    # 9. the articulation toolchain (no compositing kernel on its path)
+    articulation(dev, smi)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
@@ -1378,6 +1393,237 @@ def policy(dev, smi: str) -> dict:
         raise AssertionError("the reloaded policy did not predict")
     return {"launches": launches, "max_abs_err": err, "ms": k_ms,
             "plain_ms": p_ms, "bound_ms": bound_ms, "bound_by": bound_by}
+
+
+def articulation(dev, smi: str) -> None:
+    """Phase 9: the articulation toolchain at full width (the open box of
+    tools/workloads.py::open_box_parts: 87,342 vertices, 170,700 triangles,
+    the lid opened 60 degrees about the body's back top edge; 800x800
+    views, the upstream openbox scan's size and render resolution). No
+    compositing kernel runs here and none is counted; every check
+    raises."""
+    import numpy as np
+    import torch
+
+    from robosimgs_tpu_torch.artic.hinge import HingeDetector, _min_dists
+    from robosimgs_tpu_torch.artic.mllm import ScriptedMLLM
+    from robosimgs_tpu_torch.artic.pipeline import ArticulationPipeline
+    from robosimgs_tpu_torch.artic.render_views import (render_canonical_views,
+                                                        render_view)
+    from robosimgs_tpu_torch.cli import estimate_physics as cli_physics
+    from robosimgs_tpu_torch.cli import validate_urdf as cli_validate
+    from robosimgs_tpu_torch.cli import visualize_parts as cli_visualize
+    from robosimgs_tpu_torch.render.autotune import (mesh_demand,
+                                                     mesh_tile_capacity)
+    from robosimgs_tpu_torch.render.mesh_raster import (MeshRasterConfig,
+                                                        rasterize_mesh)
+    from robosimgs_tpu_torch.scenegen.urdf_fk import URDFModel
+    from robosimgs_tpu_torch.tools.workloads import open_box_parts, time_ms
+    from robosimgs_tpu_torch.utils.bake import bake_vertex_colors_from_views
+    from robosimgs_tpu_torch.utils.imresize import read_png_rgb
+    from robosimgs_tpu_torch.utils.meshio import concatenate
+    from robosimgs_tpu_torch.utils.pointcloud import depth_map_from_points
+
+    t9 = time.perf_counter()
+    res = 800
+    body, lid = open_box_parts()
+    mesh = concatenate([body, lid])
+    spacing = 0.5 / 100          # the body's grid spacing along y
+    log(f"[9 articulation] open box: lid {len(lid.vertices)} + body "
+        f"{len(body.vertices)} vertices, {len(mesh.faces)} triangles; "
+        f"{smi}")
+
+    # 9a. hinge: the pairwise distances on the card and on the CPU
+    det = HingeDetector(lid, body, device=dev)
+    det_cpu = HingeDetector(lid, body, device="cpu")
+    hinges, contact, host_ms = {}, {}, {}
+    for tag, d in (("card", det), ("cpu", det_cpu)):
+        da, db = d.distances()
+        thresh = min(da.min(), db.min()) + d.margin
+        contact[tag] = (da <= thresh, db <= thresh, da, db)
+        t0 = time.perf_counter()
+        hinges[tag] = d.detect()
+        host_ms[tag] = (time.perf_counter() - t0) * 1e3
+    flips = [int((contact["card"][i] != contact["cpu"][i]).sum())
+             for i in (0, 1)]
+    dist_err = max(float(np.abs(contact["card"][i] - contact["cpu"][i]).max())
+                   for i in (2, 3))
+    h, hc = hinges["card"], hinges["cpu"]
+    va = torch.as_tensor(lid.vertices, device=dev)
+    vb = torch.as_tensor(body.vertices, device=dev)
+    dist_ms = time_ms(lambda: (_min_dists(va, vb), _min_dists(vb, va)), 3, 1)
+    detect_ms = time_ms(det.detect, 3, 1)
+    detect_wall = wall_ms(det.detect, 3)
+    log(f"  hinge: card contacts {h.contact_count_a} + {h.contact_count_b}, "
+        f"CPU {hc.contact_count_a} + {hc.contact_count_b}, contact-set flips "
+        f"{flips[0]} + {flips[1]}, distances card vs CPU max {dist_err:.3e} m;"
+        f" position {h.position.tolist()} (CPU diff "
+        f"{float(np.abs(h.position - hc.position).max()):.3e}), axis "
+        f"{h.axis.tolist()} (CPU diff "
+        f"{float(np.abs(h.axis - hc.axis).max()):.3e}), confidence "
+        f"{h.confidence:.6f}")
+    log(f"  hinge times: both distance passes {dist_ms:.4f} ms (CUDA "
+        f"events), detect {detect_ms:.4f} ms events / {detect_wall:.4f} ms "
+        f"host wall (first call {host_ms['card']:.1f} ms); the same detect "
+        f"on the CPU {host_ms['cpu']:.1f} ms")
+    for tag, r in hinges.items():
+        off = float(np.hypot(r.position[1] - 0.25, r.position[2] - 0.1))
+        if not (abs(float(r.axis[0])) > 0.99 and off < spacing):
+            raise AssertionError(f"{tag} hinge off the edge: axis "
+                                 f"{r.axis.tolist()}, {off:.4f} m from it")
+
+    # 9b. the six canonical views with markers, written as PNGs
+    marks = [(np.array([0.0, 0.0, 0.3]), (1.0, 0.0, 0.0)),
+             (np.array([0.0, -0.25, 0.0]), (0.0, 1.0, 0.0))]
+    with tempfile.TemporaryDirectory() as tmp:
+        seg = os.path.join(tmp, "segmentation")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        views = render_canonical_views(mesh, seg, resolution=res,
+                                       markers=marks, device=dev)
+        torch.cuda.synchronize()
+        views_s = time.perf_counter() - t0
+        demand = 0
+        for name, v in views.items():
+            cam = v["camera"]
+            ms = time_ms(lambda: render_view(mesh, cam), 2, 1)
+            st = v["stats"]
+            need = mesh_demand([[(torch.as_tensor(mesh.vertices, device=dev),
+                                  torch.as_tensor(mesh.faces, device=dev),
+                                  None)]], [cam], MeshRasterConfig(
+                tile_capacity=1024))["max_tile_count"]
+            demand = max(demand, need)
+            log(f"  view {name}: {ms:.2f} ms (CUDA events), covered "
+                f"{float(np.isfinite(v['depth']).mean()):.4f}, triangles "
+                f"truncated {int(st.truncated_gaussians)}, overflowed tiles "
+                f"{int(st.overflowed_tiles)}, max a tile "
+                f"{int(st.max_tile_count)} (mesh_demand {need}) at tile "
+                f"capacity 1024")
+            if not np.isfinite(v["clean"]).all():
+                raise AssertionError(f"view {name} is not finite")
+        cap = mesh_tile_capacity(demand)
+        log(f"  six views with markers: {views_s:.2f} s host wall (both "
+            f"renders of each view, PNGs written); largest demand {demand} "
+            f"triangles a tile -> capacity {cap}")
+        # one view against the CPU path (edge-on faces: the front)
+        cam = views["front"]["camera"]
+        cpu_img, cpu_depth = render_view(mesh, cam.to("cpu"),
+                                         return_depth=True)
+        gm = np.isfinite(views["front"]["depth"])
+        cm = np.isfinite(cpu_depth)
+        view_flips = float((gm != cm).mean())
+        both = gm & cm
+        view_err = float(np.abs(views["front"]["clean"][both]
+                                - cpu_img[both]).max())
+        log(f"  front view card vs CPU: mask flips {view_flips:.6f} of "
+            f"pixels, rgb max {view_err:.3e} where both cover")
+        if view_flips > 1e-3 or view_err > 1e-5:
+            raise AssertionError("the front view disagrees with the CPU path")
+
+        # 9c. the pipeline with a scripted MLLM: URDF + metadata
+        mllm = ScriptedMLLM(responses=[(
+            "Recommend URDF parameters",
+            '{"object_type": "box", "base_link": "base", "lower_rad": 0.0, '
+            '"upper_rad": 1.57, "effort": 5, "velocity": 2, "friction": 0.5,'
+            ' "damping": 0.2, "base_mass_kg": 0.5, "movable_mass_kg": 0.2, '
+            '"reasoning": "a box lid"}')])
+        t0 = time.perf_counter()
+        meta = ArticulationPipeline(lid, body, mllm=mllm, device=dev).generate(
+            os.path.join(tmp, "urdf"),
+            marked_views=[v["marked"] for v in views.values()])
+        pipe_s = time.perf_counter() - t0
+        problems = URDFModel.parse(meta["urdf_path"]).validate()
+        log(f"  ArticulationPipeline.generate: {pipe_s:.2f} s host wall, "
+            f"axis {meta['hinge']['axis']}, limits "
+            f"{meta['joint_limits']['lower']}..{meta['joint_limits']['upper']}"
+            f", URDF problems {problems}")
+        if problems or not meta["mllm_recommendations"]["parameters_used"]:
+            raise AssertionError("the generated URDF does not validate")
+
+        # 9d. bake a smooth vertex colour field back from six unshaded
+        # renders of it (bilinear sampling blends at silhouettes; the
+        # open lid hides part of the body's top and its own underside
+        # from every axis view, about a tenth of the vertices)
+        cfg = MeshRasterConfig(tile_capacity=cap, max_tiles_per_tri=512)
+        cams = [v["camera"] for v in views.values()]
+        lo, hi = mesh.bounds
+        truth = (0.25 + 0.5 * (mesh.vertices - lo) / (hi - lo)).astype(
+            np.float32)
+        verts = torch.as_tensor(mesh.vertices, device=dev)
+        faces = torch.as_tensor(mesh.faces, device=dev)
+        cols = torch.as_tensor(truth, device=dev)
+        imgs = []
+        with torch.no_grad():
+            for cam in cams:
+                out = rasterize_mesh(verts, faces, cam, vertex_colors=cols,
+                                     cfg=cfg)
+                imgs.append(np.where(out["mask"].cpu().numpy()[..., None],
+                                     out["rgb"].cpu().numpy(), 0.0)
+                            .astype(np.float32))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        colors, seen = bake_vertex_colors_from_views(
+            mesh, imgs, cams, tile_capacity=cap)
+        bake_s = time.perf_counter() - t0
+        err = np.abs(colors[seen] - truth[seen])
+        log(f"  bake over six views at capacity {cap}: {bake_s:.2f} s host "
+            f"wall, seen {float(seen.mean()):.4f} of vertices, colour error "
+            f"median {float(np.median(err)):.5f}, 90th percentile "
+            f"{float(np.percentile(err, 90)):.5f}")
+        if not (seen.mean() > 0.8 and np.median(err) < 0.02
+                and np.percentile(err, 90) < 0.1):
+            raise AssertionError("the bake did not recover the colours")
+
+        # 9e. a z-buffer of 1M surface samples at 800x800
+        pts_np = mesh.sample_surface(1_000_000, seed=0)
+        pts = torch.as_tensor(pts_np, device=dev)
+        cam = views["top"]["camera"]
+        dmap = depth_map_from_points(pts, cam)
+        ms = time_ms(lambda: depth_map_from_points(pts, cam), 10)
+        got = dmap.cpu().numpy()
+        want = depth_map_from_points(torch.as_tensor(pts_np),
+                                     cam.to("cpu")).numpy()
+        fin = np.isfinite(got) & np.isfinite(want)
+        same = float((np.isfinite(got) == np.isfinite(want)).mean())
+        rel = float((np.abs(got[fin] - want[fin])
+                     <= 1e-6 * np.abs(want[fin])).mean())
+        zbuf = views["top"]["depth"]
+        both = fin & np.isfinite(zbuf)
+        gap = float(np.median(np.abs(got[both] - zbuf[both]) / zbuf[both]))
+        log(f"  depth_map_from_points, 1M points at {res}x{res}: {ms:.4f} ms "
+            f"(CUDA events); card vs CPU: empty pixels agree on {same:.6f}, "
+            f"depths within 1e-6 relative on {rel:.6f}; against the top "
+            f"view's z-buffer median relative gap {gap:.2e}")
+        if same < 0.999 or rel < 0.999 or gap > 1e-2:
+            raise AssertionError("the point z-buffer disagrees")
+
+        # 9f. the three CLIs on the phase's outputs
+        spec = os.path.join(tmp, "spec.json")
+        with open(spec, "w") as fh:
+            json.dump({"caption": "a box with an open lid", "responses": [
+                ["list the 3 most likely materials",
+                 '{"1": "rigid: wood", "2": "rigid: metal", '
+                 '"3": "deformable: rubber"}']]}, fh)
+        phys = os.path.join(tmp, "physics.json")
+        vis = os.path.join(tmp, "visualization.png")
+        strip = os.path.join(tmp, "strip.png")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):
+            cli_physics.main([os.path.join(seg, "view_front.png"),
+                              "--scripted", spec, "--output", phys])
+            cli_visualize.main([tmp, "--out", vis])
+            cli_validate.main([meta["urdf_path"], "--render", strip])
+        cli_s = time.perf_counter() - t0
+        with open(phys) as fh:
+            est = json.load(fh)
+        shapes = [read_png_rgb(p).shape for p in (vis, strip)]
+        log(f"  CLIs: estimate_physics -> {est['method']} {est['material']}, "
+            f"visualize_parts {shapes[0]}, validate_urdf --render "
+            f"{shapes[1]}: {cli_s:.2f} s; phase "
+            f"{time.perf_counter() - t9:.1f} s")
+        if est["material"] != "wood" or shapes != [(512, 1536, 3),
+                                                   (256, 1280, 3)]:
+            raise AssertionError("the articulation CLIs did not run")
 
 
 if __name__ == "__main__":

@@ -13,6 +13,7 @@ from __future__ import annotations
 import argparse
 import os
 import struct
+import sys
 import zlib
 
 import numpy as np
@@ -39,8 +40,8 @@ def build_parser():
     return p
 
 
-def write_png(path: str, rgb: np.ndarray) -> None:
-    """(H, W, 3) uint8 -> 8-bit RGB PNG (zlib, no filter)."""
+def encode_png(rgb: np.ndarray) -> bytes:
+    """(H, W, 3) uint8 -> the bytes of an 8-bit RGB PNG (zlib, no filter)."""
     h, w, _ = rgb.shape
     raw = b"".join(b"\x00" + rgb[i].tobytes() for i in range(h))
 
@@ -48,11 +49,16 @@ def write_png(path: str, rgb: np.ndarray) -> None:
         return (struct.pack(">I", len(data)) + tag + data
                 + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
 
+    return (b"\x89PNG\r\n\x1a\n"
+            + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(raw))
+            + chunk(b"IEND", b""))
+
+
+def write_png(path: str, rgb: np.ndarray) -> None:
+    """(H, W, 3) uint8 -> 8-bit RGB PNG file (zlib, no filter)."""
     with open(path, "wb") as f:
-        f.write(b"\x89PNG\r\n\x1a\n"
-                + chunk(b"IHDR", struct.pack(">IIBBBBB", w, h, 8, 2, 0, 0, 0))
-                + chunk(b"IDAT", zlib.compress(raw))
-                + chunk(b"IEND", b""))
+        f.write(encode_png(rgb))
 
 
 def orbit_cameras(g, n: int, fov: float, width: int, height: int,
@@ -79,6 +85,7 @@ def main(argv=None):
     import torch
 
     from robosimgs_tpu_torch.core.camera import Camera
+    from robosimgs_tpu_torch.render.config import RenderConfig
     from robosimgs_tpu_torch.render.rasterize import rasterize
     from robosimgs_tpu_torch.train.io_ply import load_ply
 
@@ -115,12 +122,21 @@ def main(argv=None):
     for cam, name in zip(cams, names):
         with torch.no_grad():
             out = rasterize(g, cam, sh_degree=args.sh_degree, background=bg,
-                            impl=args.impl)
+                            impl=args.impl, return_stats=True)
         img = (np.clip(out["rgb"].cpu().numpy(), 0, 1) * 255).astype(np.uint8)
         path = args.output if single else os.path.join(args.output,
                                                        f"{name}.png")
         write_png(path, img)
         print(f"wrote {path}")
+        st = out.get("stats")   # the tiled path bins; the reference does not
+        if st is not None and (int(st.truncated_gaussians)
+                               or int(st.overflowed_tiles)):
+            print(f"render: {name} at tile capacity {RenderConfig().tile_capacity}"
+                  f" drops splats: {int(st.truncated_gaussians)} truncated "
+                  f"gaussians, {int(st.overflowed_tiles)} overflowed tiles (up "
+                  f"to {int(st.max_tile_count)} splats a tile); "
+                  f"render/autotune.py::recommend_capacities sizes lossless "
+                  f"capacities for these cameras", file=sys.stderr)
 
 
 if __name__ == "__main__":

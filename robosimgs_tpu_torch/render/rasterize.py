@@ -30,7 +30,11 @@ def rasterize(
     sh_degree: Optional[int] = None,
     background: Optional[torch.Tensor] = None,
     impl: str = "auto",
+    return_stats: bool = False,
 ) -> Dict[str, torch.Tensor]:
+    """return_stats: the tiled path adds its binning's BinStats under
+    "stats" (truncated Gaussians, overflowed tiles); the reference path
+    bins nothing and truncates nothing, so it adds none."""
     if impl == "auto":
         impl = "tiled" if gaussians.device.type == "cuda" else "reference"
 
@@ -38,5 +42,6 @@ def rasterize(
     if impl == "reference":
         return composite_reference(proj, camera.width, camera.height, cfg, background)
     elif impl == "tiled":
-        return composite_tiled(proj, camera.width, camera.height, cfg, background)
+        return composite_tiled(proj, camera.width, camera.height, cfg, background,
+                               return_stats=return_stats)
     raise ValueError(f"unknown impl {impl!r}")

@@ -174,6 +174,26 @@ def grid_box_mesh(half, n: int, color, seed: int) -> Mesh:
                 vertex_colors=(shade * np.asarray(color)).astype(np.float32))
 
 
+def open_box_parts(n_body: int = 100, n_lid: int = 65,
+                   open_deg: float = 60.0):
+    """The articulation workload's two parts, (body, lid): a body of half
+    extents (0.25, 0.25, 0.1) and a lid of (0.25, 0.25, 0.025), grid boxes
+    of n_body and n_lid quads a face edge, the lid opened open_deg degrees
+    about the body's back top edge (y = 0.25, z = 0.1, along x), so the
+    parts meet along that line. At the defaults 87,342 vertices and
+    170,700 triangles, the size of the upstream openbox scan."""
+    body = grid_box_mesh((0.25, 0.25, 0.1), n_body, (0.8, 0.6, 0.4), seed=0)
+    lid = grid_box_mesh((0.25, 0.25, 0.025), n_lid, (0.4, 0.6, 0.8), seed=1)
+    a = -np.deg2rad(open_deg)           # the lid's front rises
+    rot = np.array([[1.0, 0.0, 0.0], [0.0, np.cos(a), -np.sin(a)],
+                    [0.0, np.sin(a), np.cos(a)]])
+    edge = np.array([0.0, 0.25, 0.1])
+    # the lid resting on the body: its back bottom edge on the hinge line
+    v = lid.vertices.astype(np.float64) + np.array([0.0, 0.0, 0.125]) - edge
+    lid.vertices = (v @ rot.T + edge).astype(np.float32)
+    return body, lid
+
+
 def write_rollout_object(directory: str, n: int = 32) -> str:
     """Write the rollout object (URDF + two untextured .glb links with
     vertex colors, each box face an n x n grid) into directory; returns

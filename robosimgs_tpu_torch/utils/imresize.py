@@ -5,8 +5,11 @@ for RGB) on 8-bit images, in numpy: a separable filter with a = -0.5
 whose support widens by the reduction factor, weights normalized per
 output pixel and quantized to 22-bit fixed point, a horizontal pass and
 then a vertical one, each rounded and clipped to uint8 (a pass is
-skipped when its axis keeps its size). `read_png_rgb` reads the 8-bit
-RGB PNGs the port's writers write (cli/render.py's `write_png`).
+skipped when its axis keeps its size). `read_png_rgb` reads
+non-interlaced 8-bit PNGs of every colour type and row filter (what
+cli/render.py's `write_png` and Pillow write) as Pillow's
+`convert("RGB")` does, in numpy and zlib alone, so that both run where
+Pillow is not installed.
 """
 
 from __future__ import annotations
@@ -82,29 +85,91 @@ def resize_bicubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
     return out
 
 
+# channels a pixel carries at bit depth 8, by PNG colour type: grey,
+# RGB, palette index, grey + alpha, RGBA
+_CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+
+
+def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
+    """Undo the per-row PNG filters of (h, 1 + stride) uint8 scanlines
+    (each led by its filter type) into (h, stride) uint8 bytes. A row
+    depends on the row before it; None, Up and Sub (a running sum, mod
+    256 in uint8) are vectorised within the row, Average and Paeth read
+    the byte bpp to the left as they write it, so they run byte by byte."""
+    h, stride = raw.shape[0], raw.shape[1] - 1
+    out = np.zeros((h, stride), np.uint8)
+    prior = np.zeros(stride, np.uint8)
+    for y in range(h):
+        ftype, line = int(raw[y, 0]), raw[y, 1:]
+        if ftype == 0:
+            cur = line.copy()
+        elif ftype == 1:
+            cur = np.cumsum(line.reshape(-1, bpp), axis=0,
+                            dtype=np.uint8).reshape(-1)
+        elif ftype == 2:
+            cur = line + prior
+        elif ftype in (3, 4):
+            f, b = line.tolist(), prior.tolist()
+            c = [0] * stride
+            for i in range(stride):
+                left = c[i - bpp] if i >= bpp else 0
+                if ftype == 3:
+                    c[i] = (f[i] + ((left + b[i]) >> 1)) & 0xFF
+                    continue
+                up_left = b[i - bpp] if i >= bpp else 0
+                p = left + b[i] - up_left
+                pa, pb, pc = abs(p - left), abs(p - b[i]), abs(p - up_left)
+                pred = (left if pa <= pb and pa <= pc
+                        else b[i] if pb <= pc else up_left)
+                c[i] = (f[i] + pred) & 0xFF
+            cur = np.asarray(c, np.uint8)
+        else:
+            raise ValueError(f"unknown PNG filter type {ftype} in row {y}")
+        out[y] = prior = cur
+    return out
+
+
 def read_png_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 pixels of an 8-bit RGB, non-interlaced PNG whose
-    rows are unfiltered (what cli/render.py's write_png writes); raises
-    ValueError on any other PNG."""
+    """(H, W, 3) uint8 pixels of a non-interlaced 8-bit PNG of any colour
+    type (grey, RGB, palette, grey + alpha, RGBA) and any row filters,
+    as Pillow's Image.open(path).convert("RGB") gives them: grey is
+    replicated, alpha dropped, palette entries looked up. Raises
+    ValueError on any other PNG (16-bit, bit depth below 8, interlaced)."""
     with open(path, "rb") as f:
         data = f.read()
     if data[:8] != b"\x89PNG\r\n\x1a\n":
         raise ValueError(f"{path}: not a PNG")
-    pos, idat, w, h = 8, b"", 0, 0
+    pos, idat, header, palette = 8, [], None, None
     while pos < len(data):
         n, tag = struct.unpack(">I4s", data[pos:pos + 8])
         body = data[pos + 8:pos + 8 + n]
         if tag == b"IHDR":
-            w, h, depth, color, _, _, interlace = struct.unpack(">IIBBBBB",
-                                                                body)
-            if (depth, color, interlace) != (8, 2, 0):
-                raise ValueError(f"{path}: only 8-bit RGB non-interlaced "
-                                 f"PNGs are read (depth {depth}, color type "
-                                 f"{color}, interlace {interlace})")
+            header = struct.unpack(">IIBBBBB", body)
+        elif tag == b"PLTE":
+            palette = np.frombuffer(body, np.uint8).reshape(-1, 3)
         elif tag == b"IDAT":
-            idat += body
+            idat.append(body)
+        elif tag == b"IEND":
+            break
         pos += 12 + n
-    raw = np.frombuffer(zlib.decompress(idat), np.uint8).reshape(h, 1 + 3 * w)
-    if raw[:, 0].any():
-        raise ValueError(f"{path}: filtered PNG rows are not read")
-    return raw[:, 1:].reshape(h, w, 3)
+    if header is None:
+        raise ValueError(f"{path}: no IHDR chunk")
+    w, h, depth, color, _, _, interlace = header
+    if depth != 8 or interlace != 0 or color not in _CHANNELS:
+        raise ValueError(f"{path}: only non-interlaced 8-bit PNGs are read "
+                         f"(bit depth {depth}, color type {color}, interlace "
+                         f"{interlace})")
+    ch = _CHANNELS[color]
+    raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
+    px = _unfilter(raw[:h * (1 + w * ch)].reshape(h, 1 + w * ch),
+                   ch).reshape(h, w, ch)
+    if color == 3:
+        if palette is None:
+            raise ValueError(f"{path}: palette PNG without a PLTE chunk")
+        # entries past the palette read as black
+        lut = np.zeros((256, 3), np.uint8)
+        lut[:len(palette)] = palette[:256]
+        return lut[px[..., 0]]
+    if ch <= 2:                                   # grey, grey + alpha
+        return np.repeat(px[..., :1], 3, axis=2)
+    return np.ascontiguousarray(px[..., :3])      # RGB, RGBA

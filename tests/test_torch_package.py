@@ -1,7 +1,7 @@
 """The port stands alone: no file under robosimgs_tpu_torch/ imports JAX,
-its relatives, or the JAX package; Pillow, which the card's machine does
-not have, is imported by no module at module level and nowhere on the
-policy path."""
+its relatives, or the JAX package; Pillow, which a GPU host may not
+have, is imported by no module at module level and nowhere on the policy
+and articulation paths."""
 
 import ast
 from pathlib import Path
@@ -47,8 +47,10 @@ def test_no_pillow_at_module_level_nor_on_the_policy_path():
     for f in sorted(root.rglob("*.py")):
         rel = f.relative_to(root).as_posix()
         tree = ast.parse(f.read_text())
-        on_path = rel.startswith("policy/") or rel in (
-            "cli/train_policy.py", "utils/imresize.py")
+        on_path = rel.startswith(("policy/", "artic/")) or rel in (
+            "cli/train_policy.py", "utils/imresize.py", "utils/bake.py",
+            "utils/pointcloud.py", "cli/estimate_physics.py",
+            "cli/visualize_parts.py", "cli/validate_urdf.py")
         top = {n.lineno for n in tree.body}      # module-level statements
         bad += [f"{rel}:{line} imports PIL"
                 for mod, line in _imported_roots(tree)

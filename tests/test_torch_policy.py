@@ -470,9 +470,14 @@ def test_read_png_rgb(tmp_path):
     np.testing.assert_array_equal(read_png_rgb(str(tmp_path / "a.png")), img)
     np.testing.assert_array_equal(
         np.asarray(Image.open(str(tmp_path / "a.png"))), img)
+    # Pillow-written RGBA (filtered rows) reads as convert("RGB") gives it;
+    # 16-bit PNGs raise (tests/test_torch_png.py has every kind)
     Image.fromarray(img).convert("RGBA").save(str(tmp_path / "b.png"))
-    with pytest.raises(ValueError, match="8-bit RGB"):
-        read_png_rgb(str(tmp_path / "b.png"))
+    np.testing.assert_array_equal(read_png_rgb(str(tmp_path / "b.png")), img)
+    Image.fromarray(img[..., 0].astype(np.uint16) * 257).save(
+        str(tmp_path / "c.png"))
+    with pytest.raises(ValueError, match="8-bit"):
+        read_png_rgb(str(tmp_path / "c.png"))
 
 
 def test_policy_learns_toy_task():

@@ -168,3 +168,35 @@ def test_cli_render_cpu(tmp_path):
     assert img.shape == (32, 40, 3) and img.max() > 0
     with pytest.raises(SystemExit, match="required"):
         cli_render.main([scene, "--output", str(out_dir), "--device", "cpu"])
+
+
+def test_cli_render_reports_truncation(tmp_path, capsys):
+    """5,000 splats over a 32x32 orbit view (4 tiles) want more than the
+    default tile capacity of 1024: the CLI names the dropped splats and the
+    remedy on stderr, from the render's own BinStats, and writes the same
+    pixels as the in-process render."""
+    jg = JGaussians.random(jax.random.PRNGKey(3), 5000, sh_degree=0)
+    scene = str(tmp_path / "scene.ply")
+    jio.save_ply(scene, jg)
+    out = tmp_path / "view.png"
+    argv = [scene, "--output", str(out), "--orbit", "1", "--width", "32",
+            "--height", "32", "--device", "cpu", "--impl", "tiled"]
+    cli_render.main(argv)
+    err = capsys.readouterr().err
+    g = load_ply(scene, device="cpu")
+    cam = cli_render.orbit_cameras(g, 1, 60.0, 32, 32, device="cpu")[0]
+    with torch.no_grad():
+        ref = rasterize(g, cam, background=torch.ones(3), impl="tiled",
+                        return_stats=True)
+    st = ref["stats"]
+    assert int(st.overflowed_tiles) > 0
+    assert (f"{int(st.truncated_gaussians)} truncated gaussians, "
+            f"{int(st.overflowed_tiles)} overflowed tiles") in err
+    assert "recommend_capacities" in err
+    from robosimgs_tpu_torch.utils.imresize import read_png_rgb
+    np.testing.assert_array_equal(
+        read_png_rgb(str(out)),
+        (np.clip(ref["rgb"].numpy(), 0, 1) * 255).astype(np.uint8))
+    # the reference compositor bins nothing: no stats, nothing to report
+    cli_render.main(argv[:-2] + ["--impl", "reference"])
+    assert capsys.readouterr().err == ""
