@@ -86,6 +86,21 @@ Phases, each of which raises on a fault (nothing is caught):
                1M surface samples against the CPU and the z-buffer; the
                estimate_physics, visualize_parts and validate_urdf CLIs on
                those outputs. No compositing kernel runs on this path.
+ 10. segment — mesh to URDF on the same open box as one mesh (the lid's
+               50,700 triangles first), seeded at the lid vertex nearest
+               its centroid and the body vertex nearest (0, -0.25, 0):
+               cli.articulate with the geometric split, then with the
+               mask model (--mask-backend masknet --fusion-views 3) and
+               its URDF through cli.validate_urdf; every part non-empty,
+               the lid's face count and face accuracy against the truth,
+               the hinge's axis and its distance from the edge, each
+               Segmenter stage's host wall, the triangles every render
+               drops; the mask model's forward on the chosen view's
+               prompt batch on the card against the CPU (logits within
+               1e-4, thresholded pixels within 0.1 %), its time, kernels
+               and idle share, generate's; train_masknet (150 steps at
+               64 px, batch 8, 24 scenes) on the card. No compositing
+               kernel runs on this path either.
 The line before the last lists the kernels; the last line is the result.
 Exits non-zero without a CUDA device.
 """
@@ -775,6 +790,8 @@ def main() -> int:
     pol = policy(dev, smi)
     # 9. the articulation toolchain (no compositing kernel on its path)
     articulation(dev, smi)
+    # 10. mesh to URDF: segmentation and the mask model (none either)
+    segment(dev, smi)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
@@ -1624,6 +1641,266 @@ def articulation(dev, smi: str) -> None:
         if est["material"] != "wood" or shapes != [(512, 1536, 3),
                                                    (256, 1280, 3)]:
             raise AssertionError("the articulation CLIs did not run")
+
+
+@contextlib.contextmanager
+def timed_calls(targets):
+    """Patch each (owner, attribute) so that its calls add their host
+    wall (inclusive of nested timed calls) to walls[attribute]; restore
+    on exit."""
+    walls, saved = {}, []
+    for owner, name in targets:
+        fn = getattr(owner, name)
+
+        def wrap(*args, _fn=fn, _name=name, **kw):
+            t0 = time.perf_counter()
+            try:
+                return _fn(*args, **kw)
+            finally:
+                walls[_name] = (walls.get(_name, 0.0)
+                                + time.perf_counter() - t0)
+
+        saved.append((owner, name, fn))
+        setattr(owner, name, wrap)
+    try:
+        yield walls
+    finally:
+        for owner, name, fn in saved:
+            setattr(owner, name, fn)
+
+
+def log_drops(lines) -> None:
+    """The renders' dropped-triangle reports, each distinct one once."""
+    import collections
+    counts = collections.Counter(lines)
+    log(f"    renders that dropped triangles: {len(lines)}")
+    for ln, n in counts.items():
+        log(f"      x{n} {ln}")
+
+
+def face_hit(mesh, part):
+    """Which faces of `mesh` the part holds (a submesh keeps each face's
+    three vertices, so the face is found by their coordinates)."""
+    import numpy as np
+
+    def keys(m):
+        tri = np.ascontiguousarray(m.vertices[m.faces].reshape(-1, 9),
+                                   np.float32)
+        return [r.tobytes() for r in tri]
+
+    index = {k: i for i, k in enumerate(keys(mesh))}
+    hit = np.zeros(len(mesh.faces), bool)
+    hit[[index[k] for k in keys(part)]] = True
+    return hit
+
+
+def masknet_flops(model, size: int, batch: int) -> float:
+    """Multiply-adds x 2 of MaskUNet's convolutions at (batch, size^2)."""
+    def conv(i, res):
+        w = model.convs[i].weight
+        return 2.0 * w.shape[0] * w.shape[1] * w.shape[2] * w.shape[3] \
+            * res * res * batch
+
+    res, i = size, 1
+    total = conv(0, res)
+    for _ in range(model.levels):
+        res //= 2
+        total += conv(i, res) + conv(i + 1, res)
+        i += 2
+    for _ in range(model.levels):
+        res *= 2
+        total += conv(i, res) + conv(i + 1, res)
+        i += 2
+    return total + conv(i, res)
+
+
+def segment(dev, smi: str) -> None:
+    """Phase 10: mesh to URDF on the artic workload's open box as one mesh
+    (tools/workloads.py::open_box_parts, 170,700 triangles, the lid's
+    50,700 first), at the CLI's 800x800 views: cli.articulate with the
+    geometric split and with the mask model and three-view fusion, the
+    mask model against the CPU, its times, and a short training run on
+    the card. No compositing kernel runs here; every check raises."""
+    import numpy as np
+    import torch
+
+    from robosimgs_tpu_torch.artic import masknet
+    from robosimgs_tpu_torch.artic import segmentation as seg
+    from robosimgs_tpu_torch.cli import articulate as cli_articulate
+    from robosimgs_tpu_torch.cli import validate_urdf as cli_validate
+    from robosimgs_tpu_torch.scenegen.urdf_fk import URDFModel
+    from robosimgs_tpu_torch.tools.workloads import open_box_parts, time_ms
+    from robosimgs_tpu_torch.utils.meshio import (concatenate, load_mesh,
+                                                  save_mesh)
+
+    t10 = time.perf_counter()
+    body, lid = open_box_parts()
+    mesh = concatenate([lid, body])
+    truth = np.arange(len(mesh.faces)) < len(lid.faces)
+    c = lid.vertices.mean(0)
+    seeds = [lid.vertices[np.argmin(((lid.vertices - c) ** 2).sum(1))],
+             body.vertices[np.argmin(((body.vertices
+                                       - np.array([0.0, -0.25, 0.0])) ** 2)
+                                      .sum(1))]]
+    points = [str(float(x)) for p in seeds for x in p]
+    log(f"[10 segment] open box as one mesh: {len(mesh.vertices)} vertices, "
+        f"{len(mesh.faces)} triangles, the lid's {int(truth.sum())} first; "
+        f"seeds {np.round(seeds, 4).tolist()}; {smi}")
+    stages = [(seg.Segmenter, n) for n in (
+        "select_points", "render_views", "choose_best_view", "name_parts",
+        "segment_part", "generate_candidates", "fused_labels",
+        "split_and_export")] + [
+        (seg, "_propagate_nearest"), (seg, "fuse_multiview_labels"),
+        (seg, "smooth_face_labels"), (seg, "mask_from_part"),
+        (seg, "split_mesh_by_points"), (masknet.MaskNetGenerator,
+                                         "generate")]
+    captured = {}
+    probs = masknet.MaskNetGenerator.probs
+
+    def capture_probs(self, x):
+        if x.shape[0] > 1 and "batch" not in captured:
+            captured["gen"], captured["batch"] = self, x
+        return probs(self, x)
+
+    generate = masknet.MaskNetGenerator.generate
+
+    def capture_generate(self, image, point=None):
+        captured.setdefault("image", (image, point))
+        return generate(self, image, point)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "openbox.glb")
+        save_mesh(path, mesh)
+        runs = {}
+        for tag, extra in (("geometric", []),
+                           ("masknet", ["--mask-backend", "masknet",
+                                        "--fusion-views", "3"])):
+            out = os.path.join(tmp, tag)
+            err = io.StringIO()
+            masknet.MaskNetGenerator.probs = capture_probs
+            masknet.MaskNetGenerator.generate = capture_generate
+            try:
+                with timed_calls(stages) as walls, \
+                        contextlib.redirect_stdout(io.StringIO()), \
+                        contextlib.redirect_stderr(err):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    cli_articulate.main([path, "--output", out, "--points",
+                                         *points, "--part-names", "lid",
+                                         "box body", "--device", str(dev),
+                                         *extra])
+                    torch.cuda.synchronize()
+                    wall = time.perf_counter() - t0
+            finally:
+                masknet.MaskNetGenerator.probs = probs
+                masknet.MaskNetGenerator.generate = generate
+            parts = {c: load_mesh(os.path.join(out, "segmentation",
+                                               f"part_{c}.glb"))
+                     for c in ("RED", "GREEN")}
+            if min(len(p.faces) for p in parts.values()) == 0:
+                raise AssertionError(f"{tag}: a part is empty")
+            hit = face_hit(mesh, parts["RED"])
+            with open(os.path.join(out, "urdf", "metadata.json")) as fh:
+                meta = json.load(fh)
+            urdf = os.path.join(out, "urdf", "articulated_object.urdf")
+            problems = URDFModel.parse(urdf).validate()
+            if problems:
+                raise AssertionError(f"{tag}: URDF problems {problems}")
+            axis = np.asarray(meta["hinge"]["axis"])
+            pos = np.asarray(meta["hinge"]["original_position"])
+            drops = [ln for ln in err.getvalue().splitlines()
+                     if "drops triangles" in ln]
+            runs[tag] = (out, urdf)
+            log(f"  cli.articulate {tag}: {wall:.2f} s host wall; lid "
+                f"{len(parts['RED'].faces)} faces (truth {int(truth.sum())})"
+                f", face accuracy {float((hit == truth).mean()):.6f} "
+                f"({int((hit & ~truth).sum())} body faces in the lid, "
+                f"{int((~hit & truth).sum())} lid faces in the body); hinge "
+                f"|cos| with x {abs(float(axis[0])):.6f}, "
+                f"{float(np.hypot(pos[1] - 0.25, pos[2] - 0.1)) * 1e3:.3f} "
+                f"mm from the edge y = 0.25, z = 0.1, confidence "
+                f"{meta['hinge']['axis_confidence']:.4f}")
+            log("    stage host wall (inclusive): " + ", ".join(
+                f"{k} {v:.3f} s" for k, v in walls.items()))
+            log_drops(drops)
+
+        # the URDF of the mask path through the validation CLI
+        strip = os.path.join(tmp, "strip.png")
+        printed, err = io.StringIO(), io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(printed), \
+                contextlib.redirect_stderr(err):
+            cli_validate.main([runs["masknet"][1], "--render", strip,
+                               "--device", str(dev)])
+        if "kinematic validation: OK" not in printed.getvalue():
+            raise AssertionError("cli.validate_urdf did not validate")
+        log(f"  cli.validate_urdf --render on the masknet URDF: OK, "
+            f"{time.perf_counter() - t0:.2f} s")
+        log_drops([ln for ln in err.getvalue().splitlines()
+                   if "drops triangles" in ln])
+
+    # the mask model on the chosen view's prompt batch (the grid prompts
+    # off the background) and on all grid^2 = 36 prompts: card against CPU
+    gen, x = captured["gen"], captured["batch"]
+    image, point = captured["image"]
+    coords = np.linspace(gen.size * 0.08, gen.size * 0.92, gen.grid)
+    x36 = gen._input(gen._resized(image), [(u, v) for v in coords
+                                           for u in coords])
+    cpu_model = masknet.MaskUNet()
+    cpu_model.load_state_dict(gen.model.state_dict())
+    for what, batch in (("its prompts off the background", x),
+                        ("all grid prompts", x36)):
+        with torch.no_grad():
+            card = gen.model(batch).cpu()
+            host = cpu_model(batch.cpu())
+        err = float((card - host).abs().max())
+        flips = float(((card > 0) != (host > 0)).float().mean())
+        log(f"  MaskUNet on the chosen view, {what} {tuple(batch.shape)}: "
+            f"card vs CPU logits max {err:.3e} (|logit| up to "
+            f"{float(host.abs().max()):.2f}), thresholded flips {flips:.2e}")
+        if err > 1e-4 or flips > 1e-3:
+            raise AssertionError("the mask model disagrees card vs CPU")
+    x = x36
+
+    def forward():
+        with torch.no_grad():
+            gen.model(x)
+
+    fwd_ms = time_ms(forward, 10)
+    fwd_wall = wall_ms(forward, 10)
+    fwd_busy, fwd_kernels = device_busy(forward, 5)
+    gen_ms = time_ms(lambda: gen.generate(image, point), 3, 1)
+    gen_wall = wall_ms(lambda: gen.generate(image, point), 3)
+    gen_busy, gen_kernels = device_busy(lambda: gen.generate(image, point), 2)
+    flop = masknet_flops(gen.model, x.shape[1], x.shape[0])
+    log(f"  MaskUNet forward at B = {x.shape[0]}: {fwd_ms:.4f} ms (CUDA "
+        f"events), {fwd_wall:.4f} ms host wall, busy {fwd_busy:.4f} ms over "
+        f"{fwd_kernels:.0f} kernels, idle {1 - fwd_busy / fwd_wall:.3f}; "
+        f"{flop / 1e9:.2f} GFLOP ({flop / x.shape[0] / 1e9:.3f} an image), "
+        f"{flop / fwd_ms / 1e9:.2f} TFLOP/s")
+    log(f"  generate({image.shape[0]}x{image.shape[1]}, point): {gen_ms:.2f}"
+        f" ms (CUDA events), {gen_wall:.2f} ms host wall, busy "
+        f"{gen_busy:.4f} ms over {gen_kernels:.0f} kernels, idle "
+        f"{1 - gen_busy / gen_wall:.3f}")
+
+    # a short training run on the card
+    stamps = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    tr = masknet.train_masknet(steps=150, size=64, batch=8, n_scenes=24,
+                               device=dev,
+                               progress=lambda s: stamps.append(
+                                   time.perf_counter()))
+    train_s = time.perf_counter() - t0
+    step_ms = (stamps[-1] - stamps[0]) * 1e3 / (len(stamps) - 1)
+    log(f"  train_masknet(150 steps, 64 px, batch 8, 24 scenes) on the card:"
+        f" {train_s:.2f} s host wall, {step_ms:.2f} ms a step (host wall, "
+        f"the host batch included), loss {tr.losses[0]:.4f} -> "
+        f"{tr.losses[-1]:.4f} (ratio {tr.losses[-1] / tr.losses[0]:.3f}), "
+        f"hold-out IoU {tr.holdout_iou:.4f}; phase "
+        f"{time.perf_counter() - t10:.1f} s")
+    if not (tr.losses[-1] < 0.5 * tr.losses[0] and tr.holdout_iou > 0.45):
+        raise AssertionError("train_masknet did not learn on the card")
 
 
 if __name__ == "__main__":

@@ -10,10 +10,13 @@ Ported so far: the 3DGS render path (core/, render/, train/io_ply.py,
 cli/render.py), the 3DGS training step (train/, cli/train.py), the
 rollout render path (render/mesh_raster.py, render/compose.py,
 render/autotune.py, scenegen/, utils/meshio.py, cli/render_rollout.py)
-and the diffusion-policy stage (policy/: the model, its trainer, action
+the diffusion-policy stage (policy/: the model, its trainer, action
 chunking and closed-loop evaluation in the rollout renderer;
-utils/imresize.py; cli/train_policy.py), compositing through
-csrc/composite_fwd.cu and its backward csrc/composite_bwd.cu.
+utils/imresize.py; cli/train_policy.py) and the articulation toolchain
+(artic/: segmentation, the mask model, hinge, URDF, physics; utils/
+morphology.py, bake.py, pointcloud.py; cli/articulate.py and its
+companions), compositing through csrc/composite_fwd.cu and its backward
+csrc/composite_bwd.cu.
 """
 
 import torch

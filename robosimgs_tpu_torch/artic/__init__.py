@@ -1,7 +1,7 @@
-"""The articulation toolchain (a port of robosimgs_tpu/artic/): hinge
-detection, URDF synthesis, physics-parameter estimation, canonical views
-and the pipeline that joins them. Segmentation and the mask model are
-not ported yet."""
+"""The articulation toolchain (a port of robosimgs_tpu/artic/): part
+segmentation and the learned mask model, hinge detection, URDF
+synthesis, physics-parameter estimation, canonical views and the
+pipeline that joins them."""
 
 from robosimgs_tpu_torch.artic.hinge import HingeDetector, HingeResult
 from robosimgs_tpu_torch.artic.urdf_builder import URDFBuilder

@@ -141,6 +141,48 @@ def policy_params_from_numpy(tree) -> dict:
     return sd
 
 
+def masknet_params_from_numpy(tree) -> dict:
+    """The port's MaskUNet state dict (CPU tensors) from the JAX package's
+    flax parameters as numpy arrays ({"params": ...} or its inner dict).
+    Conv_i is convs.i, its kernel HWIO -> OIHW; GroupNorm_i is norms.i,
+    scale -> weight."""
+    p = tree.get("params", tree)
+    sd = {}
+    for name, leaves in p.items():
+        kind, i = name.split("_")
+        if kind == "Conv":
+            sd[f"convs.{i}.weight"] = torch.from_numpy(np.ascontiguousarray(
+                np.array(leaves["kernel"]).transpose(3, 2, 0, 1)))
+            sd[f"convs.{i}.bias"] = torch.from_numpy(np.array(leaves["bias"]))
+        elif kind == "GroupNorm":
+            sd[f"norms.{i}.weight"] = torch.from_numpy(
+                np.array(leaves["scale"]))
+            sd[f"norms.{i}.bias"] = torch.from_numpy(np.array(leaves["bias"]))
+        else:
+            raise ValueError(f"unexpected MaskUNet module {name!r}")
+    return sd
+
+
+def masknet_params_to_numpy(state_dict) -> dict:
+    """The inverse of masknet_params_from_numpy: {"params": {Conv_i,
+    GroupNorm_i}} of float32 numpy arrays, modules in flax's sorted key
+    order."""
+    p = {}
+    for key, v in state_dict.items():
+        group, i, leaf = key.split(".")
+        a = v.detach().cpu().numpy().astype(np.float32)
+        if group == "convs":
+            mod = p.setdefault(f"Conv_{i}", {})
+            if leaf == "weight":
+                mod["kernel"] = np.ascontiguousarray(a.transpose(2, 3, 1, 0))
+            else:
+                mod["bias"] = a
+        else:
+            mod = p.setdefault(f"GroupNorm_{i}", {})
+            mod["scale" if leaf == "weight" else "bias"] = a
+    return {"params": {k: dict(sorted(p[k].items())) for k in sorted(p)}}
+
+
 def to_numpy(x):
     """Any of the port's objects as numpy: tensors as arrays, dataclasses
     and dicts as dicts of their converted fields, anything else as is."""

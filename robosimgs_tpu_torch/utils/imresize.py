@@ -1,4 +1,9 @@
-"""8-bit image input for the policy stage, without Pillow.
+"""Image resampling and 8-bit PNG input, without Pillow.
+
+`resize_linear` and `resize_nearest` are `jax.image.resize`'s "linear"
+(a triangle filter that widens by the reduction factor when it shrinks,
+so it antialiases) and "nearest" (source index floor((i + 0.5) in / out)
+in float32), on torch tensors and numpy arrays.
 
 `resize_bicubic` is Pillow's `Image.resize(size)` (BICUBIC, its default
 for RGB) on 8-bit images, in numpy: a separable filter with a = -0.5
@@ -19,6 +24,7 @@ import struct
 import zlib
 
 import numpy as np
+import torch
 
 _PRECISION_BITS = 32 - 8 - 2
 _A = -0.5
@@ -173,3 +179,56 @@ def read_png_rgb(path: str) -> np.ndarray:
     if ch <= 2:                                   # grey, grey + alpha
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])      # RGB, RGBA
+
+
+def _triangle_weights(in_size: int, out_size: int) -> np.ndarray:
+    """jax.image's (in, out) float32 weight matrix of the antialiased
+    triangle filter (compute_weight_mat): output i samples the input at
+    (i + 0.5) in / out - 0.5, the kernel widened by
+    max(in / out, 1), each column normalised to sum 1."""
+    inv_scale = np.float32(1.0 / (out_size / in_size))
+    kernel_scale = max(inv_scale, np.float32(1.0))
+    # XLA fuses (i + 0.5) * inv_scale - 0.5 into one FMA: one rounding
+    sample = ((np.arange(out_size, dtype=np.float32) + np.float32(0.5))
+              .astype(np.float64) * np.float64(inv_scale) - 0.5
+              ).astype(np.float32)
+    x = (np.abs(sample[None, :]
+                - np.arange(in_size, dtype=np.float32)[:, None])
+         / kernel_scale)
+    w = np.maximum(np.float32(0), np.float32(1) - x)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * float(np.finfo(np.float32).eps),
+                 w / np.where(total != 0, total, 1), 0).astype(np.float32)
+    inside = (sample >= -0.5) & (sample <= in_size - 0.5)
+    return np.where(inside[None, :], w, np.float32(0))
+
+
+def resize_linear(img: torch.Tensor, height: int, width: int) -> torch.Tensor:
+    """jax.image.resize(img, (height, width, C), "linear") of an (H, W, C)
+    float32 tensor, on its device: one f32 contraction per axis with the
+    triangle weights (an axis that keeps its size is left as it is)."""
+    out = img
+    if height != img.shape[0]:
+        wh = torch.from_numpy(_triangle_weights(img.shape[0], height))
+        out = torch.einsum("hwc,ho->owc", out, wh.to(img.device))
+    if width != img.shape[1]:
+        ww = torch.from_numpy(_triangle_weights(img.shape[1], width))
+        out = torch.einsum("hwc,wo->hoc", out, ww.to(img.device))
+    return out
+
+
+def _nearest_index(in_size: int, out_size: int) -> np.ndarray:
+    return np.floor((np.arange(out_size, dtype=np.float32) + np.float32(0.5))
+                    * np.float32(in_size) / np.float32(out_size)
+                    ).astype(np.int64)
+
+
+def resize_nearest(x, height: int, width: int):
+    """jax.image.resize(x, (height, width), "nearest") of an (H, W, ...)
+    numpy array or tensor."""
+    rows = _nearest_index(x.shape[0], height)
+    cols = _nearest_index(x.shape[1], width)
+    if isinstance(x, torch.Tensor):
+        rows, cols = (torch.from_numpy(rows).to(x.device),
+                      torch.from_numpy(cols).to(x.device))
+    return x[rows][:, cols]

@@ -1,7 +1,8 @@
 """The port stands alone: no file under robosimgs_tpu_torch/ imports JAX,
-its relatives, or the JAX package; Pillow, which a GPU host may not
-have, is imported by no module at module level and nowhere on the policy
-and articulation paths."""
+its relatives, or the JAX package, nor OpenCV or msgpack, which a GPU
+host may not have; Pillow, which it may not have either, is imported by
+no module at module level and nowhere on the policy and articulation
+paths."""
 
 import ast
 from pathlib import Path
@@ -10,7 +11,8 @@ import jax  # noqa: F401  (tests import both packages)
 
 import robosimgs_tpu_torch
 
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "robosimgs_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "robosimgs_tpu", "cv2",
+             "msgpack"}
 
 
 def _imported_roots(tree):
@@ -50,7 +52,8 @@ def test_no_pillow_at_module_level_nor_on_the_policy_path():
         on_path = rel.startswith(("policy/", "artic/")) or rel in (
             "cli/train_policy.py", "utils/imresize.py", "utils/bake.py",
             "utils/pointcloud.py", "cli/estimate_physics.py",
-            "cli/visualize_parts.py", "cli/validate_urdf.py")
+            "cli/visualize_parts.py", "cli/validate_urdf.py",
+            "cli/articulate.py", "utils/morphology.py")
         top = {n.lineno for n in tree.body}      # module-level statements
         bad += [f"{rel}:{line} imports PIL"
                 for mod, line in _imported_roots(tree)
