@@ -15,6 +15,9 @@ Phases, each of which raises on a fault (nothing is caught):
                splats on one corner of four tiles) and on a sparse view
                (60 splats over 256x256), where the backward skips work;
                the forward on 32x32 tiles (its 1024-thread instance);
+               the backward on 32x32 tiles (its four-pixel instance) on
+               those residuals and at the bench K=384 (T=64) with and
+               without a depth limit, and on ragged 12x12 tiles;
                the backward on the forward kernel's residuals, with the
                count of pixels whose weight gate a linear T (the
                forward's) and a log T (the backward's) decide
@@ -30,9 +33,10 @@ Phases, each of which raises on a fault (nothing is caught):
   5. entry   — the render CLI on a saved .ply: two 640x480 orbit PNGs;
                each kernel against its plain version on those two orbit
                views' bins (default RenderConfig, K=1024, 40x30 tiles);
-               then cli.train --synthetic 20000 --iterations 600 (24
-               cameras, 256x256, one densify round and a pool resize at
-               step 500): PSNR rises, scene.ply renders through the CLI
+               then cli.train --synthetic 20000 --iterations 600
+               --capacity 65536 (24 cameras, 256x256, one densify round
+               and a pool resize at step 500): PSNR rises, scene.ply
+               renders through the CLI
   6. times   — kernels, plain versions (CUDA events) and their bounds
                from this run's shapes and counts (the backward's counts
                only the pairs a pixel enters unsaturated); the render and
@@ -101,6 +105,30 @@ Phases, each of which raises on a fault (nothing is caught):
                and idle share, generate's; train_masknet (150 steps at
                64 px, batch 8, 24 scenes) on the card. No compositing
                kernel runs on this path either.
+ 11. leftovers — the bilateral grid at 1920x1080 (32 blocks) and 256x256,
+               card against CPU, timed; exposure and the grid in
+               training on cli.train's synthetic scene (20,000
+               Gaussians, 24 cameras, 256x256: per-frame tints / a
+               vignette, 300 steps at fused_steps 10 and lr 5e-3;
+               post-correction PSNR over each frame's last visit above
+               the feature-off run's for the tints, and for the
+               vignette at lr 1e-3; the grid at lr 5e-3 reported at 300
+               and 600 steps), then cli.train --exposure
+               --bilateral-grid; the bench train step eager against its
+               CUDA graph's replay (host wall, CUDA events; in one
+               profiled window its wall, the device's busy union and
+               kernels a step; capture time, memory) and fused_steps 10
+               against 0 across a
+               densify round, an opacity reset and a pool resize;
+               composite_tiled_batch at the rollout workload with the
+               mesh depth limit: one forward launch for 4 x 1,200 tiles,
+               the images against four composite_tiled calls, the kernel
+               against its plain version, the gradient against the
+               per-camera sum, times and bound; on 32x32 tiles at the
+               capacities recommend_capacities gives the bench view
+               both kernels against their plain versions and the
+               backward's time and bound, Trainer steps there, and a
+               small scene's gradients on the card against the CPU
 The line before the last lists the kernels; the last line is the result.
 Exits non-zero without a CUDA device.
 """
@@ -156,14 +184,54 @@ def psnr(a, b) -> float:
         torch.tensor(mse)).item()
 
 
-def compare_fwd(got, want, tag):
+def cutoff_slack(geom, counts, nblk, dlim, tiles_x, cfg, n_tiles_per_image=0,
+                 **_):
+    """(T, P, 1): per pixel, the sum of -log1p(-alpha) over the pairs of
+    the processed blocks whose alpha lies within the rounding of its own
+    computation of the 1/255 cutoff: |raw - alpha_min| <= 8 eps32
+    alpha_min (1 + s), s = |a| dx^2 / 2 + |c| dy^2 / 2 + |b dx dy| the
+    terms q is summed from (the kernel contracts them into FMAs, the
+    plain version rounds each; the 1 covers e^-q). Such a pair may be
+    kept on one side only; the sum is the most those flips can move the
+    pixel's final log T."""
+    import torch
+    from robosimgs_tpu_torch.render.gathered import (tile_alpha_parts,
+                                                     tile_pixel_coords)
+    T, _, K = geom.shape
+    slots = torch.minimum(nblk.long() * BK, counts.long().clamp(0, K))
+    t_img = torch.arange(T, device=geom.device) % (n_tiles_per_image or T)
+    eps = torch.finfo(torch.float32).eps
+    out = []
+    for s in range(0, T, 64):
+        e = min(s + 64, T)
+        g = geom[s:e]
+        px, py = tile_pixel_coords(t_img[s:e], tiles_x, cfg.tile_size)
+        in_count = (torch.arange(K, device=geom.device)[None, :]
+                    < slots[s:e, None])
+        d = None if dlim is None else dlim[s:e, :, 0]
+        _, _, raw, dx, dy = tile_alpha_parts(g, px, py, in_count, cfg, d)
+        terms = (0.5 * (g[:, None, 2].abs() * dx * dx
+                        + g[:, None, 4].abs() * dy * dy)
+                 + (g[:, None, 3] * dx * dy).abs())
+        near = in_count[:, None, :] & ((raw - cfg.alpha_min).abs()
+                                       <= 8 * eps * cfg.alpha_min
+                                       * (1.0 + terms))
+        if d is not None:
+            near = near & (g[:, None, 6] <= d[:, :, None])
+        out.append(torch.where(near, -torch.log1p(-raw), 0.0).sum(dim=2))
+    return torch.cat(out)[..., None]
+
+
+def compare_fwd(got, want, tag, inputs):
     """nblk equal; out >= 60 dB with <= 1e-4 of channels off by > 1e-4;
-    log-T within 1e-3 where above -20; log_t_groups (its groups of the
-    processed blocks, where above -20) with <= 1e-4 of its entries off by
-    > 1e-3 (a pair whose alpha sits at the 1/255 cutoff can be kept on one
-    side only: log1p(-1/255) = -3.9e-3 on the group ends after it, on
-    pixels whose final log-T may be below -20). Returns (max |out err|,
-    flips)."""
+    log-T within 1e-3 where above -20, save on pixels with a pair at the
+    1/255 cutoff (`cutoff_slack`), which may be off by up to their slack
+    and are counted; log_t_groups (its
+    groups of the processed blocks, where above -20) with <= 1e-4 of its
+    entries off by > 1e-3 (such a pair moves the group ends after it by
+    log1p(-1/255) = -3.9e-3, also on pixels whose final log-T may be
+    below -20). inputs: (geom, counts, dlim, the wrappers' keywords).
+    Returns (max |out err|, flips)."""
     import torch
     from robosimgs_tpu_torch.render.kernels import LT_GROUP
     (out, tfin, nblk, ltg), (rout, rtfin, rnblk, rltg) = got, want
@@ -176,8 +244,17 @@ def compare_fwd(got, want, tag):
     flips = int(off.any(dim=1).sum())      # pixels with any channel off
     db = psnr(out, rout)
     lt_err = ltg_err = ltg_frac = 0.0
-    if bool((rtfin > -20).any()):
-        lt_err = float((tfin - rtfin).abs()[rtfin > -20].max())
+    n_cut = n_over = 0
+    live_t = rtfin > -20
+    if bool(live_t.any()):
+        lt_dev = (tfin - rtfin).abs()
+        lt_err = float(lt_dev[live_t].max())
+        past = live_t & (lt_dev > 1e-3)
+        n_cut = int(past.sum())
+        if n_cut:
+            geom, counts, dlim, kw = inputs
+            slack = cutoff_slack(geom, counts, rnblk, dlim, **kw)
+            n_over = int((past & (lt_dev > 1e-3 + slack)).sum())
     done = (torch.arange(ltg.shape[1], device=ltg.device)[None, :]
             < rnblk[:, None].long() * (BK // LT_GROUP))[:, :, None]
     live = done & (rltg > -20)
@@ -187,10 +264,12 @@ def compare_fwd(got, want, tag):
         ltg_frac = float((ltg_dev > 1e-3).float().mean())
     max_err = float(err.max())
     log(f"  {tag}: max|out err| {max_err:.3e}  psnr {db:.1f} dB  "
-        f"off>1e-4 {frac:.2e} ({flips} pixels)  max|logT err| {lt_err:.3e}  "
-        f"log_t_groups max|err| {ltg_err:.3e}, off>1e-3 {ltg_frac:.2e}  "
-        f"nblk equal on {nblk.numel()} tiles")
-    if db < 60.0 or frac > 1e-4 or lt_err > 1e-3 or ltg_frac > 1e-4:
+        f"off>1e-4 {frac:.2e} ({flips} pixels)  max|logT err| {lt_err:.3e} "
+        f"({n_cut} pixels past 1e-3, {n_over} of them past their slack "
+        f"for pairs at the 1/255 cutoff)  log_t_groups max|err| "
+        f"{ltg_err:.3e}, "
+        f"off>1e-3 {ltg_frac:.2e}  nblk equal on {nblk.numel()} tiles")
+    if db < 60.0 or frac > 1e-4 or n_over or ltg_frac > 1e-4:
         raise AssertionError(f"{tag}: kernel disagrees with the plain version")
     return max_err, flips
 
@@ -248,13 +327,14 @@ def gate_flips(geom, counts, nblk, dlim, tiles_x, cfg, n_tiles_per_image=0):
     return flips
 
 
-def pair_work(geom, counts, nblk, dlim, tiles_x, cfg):
+def pair_work(geom, counts, nblk, dlim, tiles_x, cfg, n_tiles_per_image=0):
     """(pixel, splat) pair counts of the kernels' run on these inputs, over
     the slots of the processed blocks: (evaluated, kept, weighted, live,
     live_kept). kept: alpha > 0; weighted: kept and through the weight
     gate; live: the pixel enters the splat with T >= transmittance_min
     (log T from a cumsum over the slots), the only pairs the backward
-    needs; live_kept: live and kept."""
+    needs; live_kept: live and kept. Any tile size up to 32x32 (P pixels
+    a tile); tile t at the pixels of tile t % n_tiles_per_image."""
     import torch
     from robosimgs_tpu_torch.render.gathered import (tile_alpha,
                                                      tile_pixel_coords)
@@ -262,11 +342,11 @@ def pair_work(geom, counts, nblk, dlim, tiles_x, cfg):
     P = cfg.tile_size ** 2
     lt_min = math.log(cfg.transmittance_min)
     slots = torch.minimum(nblk.long() * BK, counts.long().clamp(0, K))
+    t_img = torch.arange(T, device=geom.device) % (n_tiles_per_image or T)
     kept = weighted = live = live_kept = 0
     for s in range(0, T, 64):
         e = min(s + 64, T)
-        px, py = tile_pixel_coords(torch.arange(s, e, device=geom.device),
-                                   tiles_x, cfg.tile_size)
+        px, py = tile_pixel_coords(t_img[s:e], tiles_x, cfg.tile_size)
         in_count = (torch.arange(K, device=geom.device)[None, :]
                     < slots[s:e, None])
         alpha = tile_alpha(geom[s:e], px, py, in_count, cfg,
@@ -283,7 +363,7 @@ def pair_work(geom, counts, nblk, dlim, tiles_x, cfg):
     return int(slots.sum()) * P, kept, weighted, live, live_kept
 
 
-def fwd_bound(geom, counts, nblk, dlim, tiles_x, cfg):
+def fwd_bound(geom, counts, nblk, dlim, tiles_x, cfg, n_tiles_per_image=0):
     """The forward kernel's bound on these inputs, from the pairs of its
     processed blocks: (bound_ms, "operations" or "bytes", a line that
     shows the count, pair_work's counts). Bytes: counts, geom rows 0..5
@@ -291,7 +371,8 @@ def fwd_bound(geom, counts, nblk, dlim, tiles_x, cfg):
     evaluated slots, the limit, out (8 rows), log-T, nblk and the
     processed groups of log_t_groups."""
     from robosimgs_tpu_torch.render.kernels import LT_GROUP
-    work = pair_work(geom, counts, nblk, dlim, tiles_x, cfg)
+    work = pair_work(geom, counts, nblk, dlim, tiles_x, cfg,
+                     n_tiles_per_image)
     pairs, kept, weighted = work[:3]
     T, P = geom.shape[0], cfg.tile_size ** 2
     n_slots = pairs // P
@@ -311,6 +392,40 @@ def fwd_bound(geom, counts, nblk, dlim, tiles_x, cfg):
     return max(ops_ms, bytes_ms), bound_by, detail, work
 
 
+def bwd_bound(geom, counts, nblk, dlim, tiles_x, cfg, work=None):
+    """The backward kernel's bound on these inputs: (bound_ms, "operations"
+    or "bytes", a line that shows the count). Operations: the pairs their
+    pixels enter unsaturated (the forward must evaluate every pair of the
+    processed blocks for its log-T residuals; the backward needs no
+    others). Bytes: counts, nblk, geom rows 0..5 (and the depth row with
+    a limit) and feat rows 0..7 of the evaluated slots, the limit, gout
+    (8 rows), log-T, the processed groups of log_t_groups, and dgeom +
+    dfeat (16 rows) of every slot. work: pair_work's counts, if at hand."""
+    from robosimgs_tpu_torch.render.kernels import LT_GROUP
+    pairs, _, weighted, live, live_kept = work or pair_work(
+        geom, counts, nblk, dlim, tiles_x, cfg)
+    T, _, K = geom.shape
+    P = cfg.tile_size ** 2
+    n_slots = pairs // P
+    has_dlim = dlim is not None
+    n_ltg = int(nblk.sum()) * (BK // LT_GROUP) * P
+    per_eval = FLOPS_EVAL + (FLOPS_EVAL_DLIM if has_dlim else 0)
+    flops = (per_eval * live + BWD_FLOPS_KEPT * live_kept
+             + BWD_FLOPS_WEIGHTED * weighted)
+    nbytes = 4 * (2 * T + (15 if has_dlim else 14) * n_slots
+                  + (T * P if has_dlim else 0) + 8 * T * P + T * P + n_ltg
+                  + 16 * T * K)
+    ops_ms = flops / PEAK_FP32_FLOPS * 1e3
+    bytes_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    bound_by = "operations" if ops_ms >= bytes_ms else "bytes"
+    detail = (f"{bound_by}: {flops} flop = {live} unsaturated pairs "
+              f"({live / max(pairs, 1):.4f} of the evaluated) x {per_eval} + "
+              f"{live_kept} of them kept x {BWD_FLOPS_KEPT} + {weighted} "
+              f"weighted x {BWD_FLOPS_WEIGHTED}, {ops_ms:.6f} ms; {nbytes} B, "
+              f"{bytes_ms:.6f} ms")
+    return max(ops_ms, bytes_ms), bound_by, detail
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -326,7 +441,7 @@ def main() -> int:
     from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
     from robosimgs_tpu_torch.render.config import RenderConfig
     from robosimgs_tpu_torch.cli import train as cli_train
-    from robosimgs_tpu_torch.render.kernels import (LT_GROUP, composite_bwd,
+    from robosimgs_tpu_torch.render.kernels import (composite_bwd,
                                                     composite_bwd_plain,
                                                     composite_fwd,
                                                     composite_fwd_plain)
@@ -386,7 +501,8 @@ def main() -> int:
     fwd = composite_fwd(geom, feat, counts, None, **kw)
     torch.cuda.synchronize()
     err_a, flips_a = compare_fwd(
-        fwd, composite_fwd_plain(geom, feat, counts, None, **kw), "no dlim")
+        fwd, composite_fwd_plain(geom, feat, counts, None, **kw), "no dlim",
+        (geom, counts, None, kw))
     geom_b, feat_b = torch.cat([geom, geom2]), torch.cat([feat, feat2])
     counts_b = torch.cat([counts, counts2])
     T2 = geom_b.shape[0]
@@ -398,7 +514,7 @@ def main() -> int:
     torch.cuda.synchronize()
     err_b, flips_b = compare_fwd(
         got_b, composite_fwd_plain(geom_b, feat_b, counts_b, dlim, **kw_b),
-        "dlim + 2 images")
+        "dlim + 2 images", (geom_b, counts_b, dlim, kw_b))
     log(f"  gate flips: {flips_a} + {flips_b} pixels")
 
     # 3b. the backward kernel against its plain version, on the forward
@@ -457,7 +573,8 @@ def main() -> int:
             f"{int(counts_k.max())} nonzero {int((counts_k > 0).sum())}, "
             f"nblk max {int(fwd_k[2].max())}")
         err_skip = max(err_skip, compare_fwd(fwd_k, composite_fwd_plain(
-            geom_k, feat_k, counts_k, None, **kw_k), tag)[0])
+            geom_k, feat_k, counts_k, None, **kw_k), tag,
+            (geom_k, counts_k, None, kw_k))[0])
         gout_k = gout_like(fwd_k[0], 6)
         bwd_k = composite_bwd(geom_k, feat_k, counts_k, None, gout_k,
                               *fwd_k[1:], **kw_k)
@@ -480,7 +597,50 @@ def main() -> int:
     log(f"  32x32 tiles: T={geom_32.shape[0]} K={geom_32.shape[2]} counts "
         f"max {int(counts_32.max())}, nblk max {int(fwd_32[2].max())}")
     err_skip = max(err_skip, compare_fwd(fwd_32, composite_fwd_plain(
-        geom_32, feat_32, counts_32, None, **kw_32), "32x32 tiles")[0])
+        geom_32, feat_32, counts_32, None, **kw_32), "32x32 tiles",
+        (geom_32, counts_32, None, kw_32))[0])
+    # 3e. the backward on 32x32 tiles (its four-pixel instance): on 3d's
+    # residuals (K=1024), at the bench workload's K=384 (T=64; K is the
+    # 16x16 capacity, so deep tiles truncate, which the kernel does not
+    # mind) with and without a depth limit, and on ragged 12x12 tiles
+    gout_32 = gout_like(fwd_32[0], 20)
+    err_32 = compare_bwd(composite_bwd(
+        geom_32, feat_32, counts_32, None, gout_32, *fwd_32[1:], **kw_32),
+        composite_bwd_plain(geom_32, feat_32, counts_32, None, gout_32,
+                            *fwd_32[1:], **kw_32), "bwd 32x32 tiles K=1024")
+    cfg_t32 = RenderConfig(**{**cfg.__dict__, "tile_size": 32})
+    with torch.no_grad():
+        geom_t32, feat_t32, counts_t32, _ = bin_and_gather_packed(
+            project(g, cam, cfg_t32), res, res, cfg_t32)
+    tx_32 = num_tiles(res, res, 32)[0]
+    dlim_t32 = (torch.rand((geom_t32.shape[0], 1024, 1), generator=torch
+                           .Generator().manual_seed(21)) * 4.0 + 2.0).to(dev)
+    for tag, d in (("no dlim", None), ("dlim", dlim_t32)):
+        kw_t = dict(tiles_x=tx_32, cfg=cfg_t32, has_dlim=d is not None)
+        fwd_t = composite_fwd(geom_t32, feat_t32, counts_t32, d, **kw_t)
+        gout_t = gout_like(fwd_t[0], 22)
+        got_t = composite_bwd(geom_t32, feat_t32, counts_t32, d, gout_t,
+                              *fwd_t[1:], **kw_t)
+        torch.cuda.synchronize()
+        err_32 = max(err_32, compare_bwd(got_t, composite_bwd_plain(
+            geom_t32, feat_t32, counts_t32, d, gout_t, *fwd_t[1:], **kw_t),
+            f"bwd 32x32 tiles K=384 {tag}"))
+    log(f"  32x32 tiles at the bench K: T={geom_t32.shape[0]} "
+        f"K={geom_t32.shape[2]}, counts max {int(counts_t32.max())}, nblk "
+        f"max {int(fwd_t[2].max())} with the limit")
+    cfg_12 = RenderConfig(tile_size=12, tile_capacity=1024)
+    with torch.no_grad():
+        geom_12, feat_12, counts_12, _ = bin_and_gather_packed(
+            project(g, cam, cfg_12), res, res, cfg_12)
+    kw_12 = dict(tiles_x=num_tiles(res, res, 12)[0], cfg=cfg_12,
+                 has_dlim=False)
+    fwd_12 = composite_fwd(geom_12, feat_12, counts_12, None, **kw_12)
+    gout_12 = gout_like(fwd_12[0], 23)
+    err_32 = max(err_32, compare_bwd(
+        composite_bwd(geom_12, feat_12, counts_12, None, gout_12,
+                      *fwd_12[1:], **kw_12),
+        composite_bwd_plain(geom_12, feat_12, counts_12, None, gout_12,
+                            *fwd_12[1:], **kw_12), "bwd ragged 12x12 tiles"))
     with torch.no_grad():
         gflip_a = gate_flips(geom, counts, fwd[2], None, tiles_x, cfg)
         gflip_b = gate_flips(geom_b, counts_b, got_b[2], dlim, tiles_x, cfg,
@@ -615,7 +775,8 @@ def main() -> int:
             f" truncated={int(stats_o.truncated_gaussians)} blocks per tile "
             f"max {int(got_o[2].max())} mean {float(got_o[2].float().mean()):.2f}")
         e_o, _ = compare_fwd(got_o, composite_fwd_plain(
-            geom_o, feat_o, counts_o, None, **kw_o), f"orbit {i} 640x480")
+            geom_o, feat_o, counts_o, None, **kw_o), f"orbit {i} 640x480",
+            (geom_o, counts_o, None, kw_o))
         err_cli = max(err_cli, e_o)
         gout_o = gout_like(got_o[0], 10 + i)
         bwd_o = composite_bwd(geom_o, feat_o, counts_o, None, gout_o,
@@ -633,13 +794,14 @@ def main() -> int:
         composite_fwd.launches = composite_bwd.launches = 0
         t_cli = time.perf_counter()
         cli_train.main(["--synthetic", "20000", "--iterations", "600",
-                        "--output", tmp])
+                        "--capacity", "65536", "--output", tmp])
         cli_s = time.perf_counter() - t_cli
         launches_cli_train = (composite_fwd.launches, composite_bwd.launches)
         with open(os.path.join(tmp, "train_summary.json")) as fh:
             summary = json.load(fh)
         hist = summary["history"]
-        log(f"[5 entry] cli.train --synthetic 20000 --iterations 600: "
+        log(f"[5 entry] cli.train --synthetic 20000 --iterations 600 "
+            f"--capacity 65536: "
             f"{cli_s:.1f} s, launches fwd {launches_cli_train[0]} bwd "
             f"{launches_cli_train[1]}, psnr by log step "
             + " ".join(f"{h['step']}:{h['psnr']:.2f}" for h in hist)
@@ -679,36 +841,15 @@ def main() -> int:
     with torch.no_grad():
         bound_ms, bound_by, detail, work = fwd_bound(geom, counts, nblk, None,
                                                      tiles_x, cfg)
-    pairs, kept, weighted, live, live_kept = work
-    n_slots = pairs // P
-    T, _, K = geom.shape
-    # log_t_groups entries of the processed blocks: the forward writes,
-    # and the backward reads, no others
-    n_ltg = int(nblk.sum()) * (BK // LT_GROUP) * P
     log(f"[6 times] {smi}: composite_fwd {kernel_ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, rasterize {res}x{res} {render_ms:.4f} ms, "
         f"{launches_main} launch(es) per render")
     log(f"  bound {bound_ms:.6f} ms ({detail}), share "
         f"{bound_ms / kernel_ms:.4f} of the kernel's time; library call: none")
-    # the backward's bound: the pairs their pixels enter unsaturated (the
-    # forward must evaluate every pair of the processed blocks for its
-    # log-T residuals; the backward needs no others); bytes: counts, nblk,
-    # geom rows 0..5 and feat rows 0..7 of the evaluated slots, gout (8
-    # rows), log-T, log_t_groups, and dgeom + dfeat (16 rows) of every slot
-    bwd_flops = (FLOPS_EVAL * live + BWD_FLOPS_KEPT * live_kept
-                 + BWD_FLOPS_WEIGHTED * weighted)
-    bwd_bytes = 4 * (2 * T + 14 * n_slots + 8 * T * P + T * P + n_ltg
-                     + 16 * T * K)
-    bwd_ops_ms = bwd_flops / PEAK_FP32_FLOPS * 1e3
-    bwd_bytes_ms = bwd_bytes / PEAK_BYTES_PER_S * 1e3
-    bwd_bound_ms = max(bwd_ops_ms, bwd_bytes_ms)
-    bwd_bound_by = "operations" if bwd_ops_ms >= bwd_bytes_ms else "bytes"
+    bwd_bound_ms, bwd_bound_by, bwd_detail = bwd_bound(
+        geom, counts, nblk, None, tiles_x, cfg, work)
     log(f"  composite_bwd {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms; bound "
-        f"{bwd_bound_ms:.6f} ms ({bwd_bound_by}: {bwd_flops} flop = {live} "
-        f"unsaturated pairs ({live / pairs:.4f} of the evaluated) x "
-        f"{FLOPS_EVAL} + {live_kept} of them kept x {BWD_FLOPS_KEPT} + "
-        f"{weighted} weighted x {BWD_FLOPS_WEIGHTED}, {bwd_ops_ms:.6f} ms; "
-        f"{bwd_bytes} B, {bwd_bytes_ms:.6f} ms), share "
+        f"{bwd_bound_ms:.6f} ms ({bwd_detail}), share "
         f"{bwd_bound_ms / bwd_ms:.4f} of the kernel's time; library call: none")
     # where the render's time goes: stages by CUDA events, kernels by
     # the profiler, and the device's busy share of the host's wall time
@@ -792,6 +933,8 @@ def main() -> int:
     articulation(dev, smi)
     # 10. mesh to URDF: segmentation and the mask model (none either)
     segment(dev, smi)
+    # 11. training's leftovers and the batched composite
+    left = leftovers(dev, smi)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
@@ -800,7 +943,8 @@ def main() -> int:
         "replaces": "robosimgs_tpu/render/pallas_kernels.py:138",
         "launches": launches_train[0], "max_abs_err": max(
             err_a, err_b, err_cli, err_skip, roll["max_abs_err"],
-            pol["max_abs_err"]),
+            pol["max_abs_err"], left["batch_max_abs_err"],
+            left["tile32_fwd_max_abs_err"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "rollout_launches": roll["launches"], "rollout_ms": roll["ms"],
@@ -811,13 +955,27 @@ def main() -> int:
         "closed_loop_max_abs_err": pol["max_abs_err"],
         "closed_loop_ms": pol["ms"], "closed_loop_plain_ms": pol["plain_ms"],
         "closed_loop_bound_ms": pol["bound_ms"],
-        "closed_loop_bound_by": pol["bound_by"]}, {
+        "closed_loop_bound_by": pol["bound_by"],
+        "batch_launches": left["batch_launches"],
+        "batch_ms": left["batch_ms"], "batch_plain_ms": left["batch_plain_ms"],
+        "batch_bound_ms": left["batch_bound_ms"],
+        "batch_max_abs_err": left["batch_max_abs_err"],
+        "graph_launches_per_step":
+            left["graph_launches_per_step"]["composite_fwd"]}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "robosimgs_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "robosimgs_tpu/render/pallas_kernels.py:221",
-        "launches": launches_train[1], "max_abs_err": err_bwd,
+        "launches": launches_train[1], "max_abs_err": max(
+            err_bwd, err_32, left["tile32_max_abs_err"]),
         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
-        "bound_by": bwd_bound_by, "library_ms": None}]}))
+        "bound_by": bwd_bound_by, "library_ms": None,
+        "tile32_K": left["tile32_K"], "tile32_ms": left["tile32_ms"],
+        "tile32_max_abs_err": max(err_32, left["tile32_max_abs_err"]),
+        "tile32_plain_ms": left["tile32_plain_ms"],
+        "tile32_bound_ms": left["tile32_bound_ms"],
+        "tile32_bound_by": left["tile32_bound_by"],
+        "graph_launches_per_step":
+            left["graph_launches_per_step"]["composite_bwd"]}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0
@@ -999,7 +1157,8 @@ def rollout(dev, smi: str) -> dict:
         torch.cuda.synchronize()
         err, _ = compare_fwd(got, composite_fwd_plain(geom, feat, counts, dlim,
                                                       **kw),
-                             f"rollout cam 0 {W}x{H} mesh depth limit")
+                             f"rollout cam 0 {W}x{H} mesh depth limit",
+                             (geom, counts, dlim, kw))
     log(f"  cam 0: T={geom.shape[0]} K={geom.shape[2]}, depth limit finite on"
         f" {float(torch.isfinite(m0['depth']).float().mean()):.3f} of the "
         f"pixels, blocks per tile max {int(got[2].max())} mean "
@@ -1357,7 +1516,8 @@ def policy(dev, smi: str) -> dict:
         torch.cuda.synchronize()
         err, _ = compare_fwd(got, composite_fwd_plain(geom, feat, counts,
                                                       dlim, **kw),
-                             "closed-loop observation 96x96 mesh depth limit")
+                             "closed-loop observation 96x96 mesh depth limit",
+                             (geom, counts, dlim, kw))
         k_ms = time_ms(lambda: composite_fwd(geom, feat, counts, dlim, **kw),
                        reps=200)
         p_ms = time_ms(lambda: composite_fwd_plain(geom, feat, counts, dlim,
@@ -1901,6 +2061,575 @@ def segment(dev, smi: str) -> None:
         f"{time.perf_counter() - t10:.1f} s")
     if not (tr.losses[-1] < 0.5 * tr.losses[0] and tr.holdout_iou > 0.45):
         raise AssertionError("train_masknet did not learn on the card")
+
+
+def kernel_counts(prof, n: int) -> dict:
+    """{name: launches per step} of the compositing kernels in a profile
+    of n steps (the device-side records: inside a CUDA graph's replays
+    too, where no wrapper runs)."""
+    import torch
+    counts = {"composite_fwd": 0, "composite_bwd": 0}
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        for name in counts:
+            if f"{name}_kernel" in e.key:
+                counts[name] += e.count
+    return {k: v / n for k, v in counts.items()}
+
+
+def trace_busy(prof):
+    """(union ms, summed ms, count) of the device activity (kernels,
+    copies, sets) in a profile's trace: the union of their intervals is
+    the time the device was busy; a sum above it means they overlapped."""
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as fh:
+            events = json.load(fh)["traceEvents"]
+    spans = sorted((float(e["ts"]), float(e["ts"]) + float(e.get("dur", 0)))
+                   for e in events if e.get("ph") == "X" and e.get("cat")
+                   in ("kernel", "gpu_memcpy", "gpu_memset"))
+    union = total = 0.0
+    end = -math.inf
+    for a, b in spans:
+        total += b - a
+        if b > end:
+            union += b - max(a, end)
+            end = b
+    return union / 1e3, total / 1e3, len(spans)
+
+
+def leftovers(dev, smi: str) -> dict:
+    """Phase 11: training's leftovers and the batched composite at full
+    width. (a) the bilateral grid at 1920x1080 and 256x256, card against
+    CPU, timed; (b) exposure and the bilateral grid in training on
+    cli.train's synthetic scene (tints / a vignette, 300 steps at
+    fused_steps 10, on against off), then cli.train --exposure
+    --bilateral-grid; (c) fused_steps at the bench workload: the eager
+    step against the graph's replay (host wall, CUDA events; wall,
+    device busy and kernels a step in one profiled window; capture
+    time, memory), and a run with fused_steps 10
+    against one without across a densify round, an opacity reset and a
+    pool resize; (d) composite_tiled_batch at the rollout workload: one
+    forward launch for 4 x 1,200 tiles, the images against four
+    composite_tiled calls, the kernel against its plain version, the
+    gradient against the per-camera sum, times and bound; (e) on 32x32
+    tiles at recommend_capacities' capacities for the bench view both
+    kernels against their plain versions, the backward's time and bound,
+    Trainer steps there, and a small scene's gradients card against
+    CPU; (f) the grid's gate at lr 1e-3, and lr 5e-3 at 600 steps. Returns the numbers of the
+    kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from robosimgs_tpu_torch import Camera, Gaussians
+    from robosimgs_tpu_torch.cli import render as cli_render
+    from robosimgs_tpu_torch.cli import train as cli_train
+    from robosimgs_tpu_torch.render.autotune import recommend_capacities
+    from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
+    from robosimgs_tpu_torch.render.compose import merge_mesh_layers
+    from robosimgs_tpu_torch.render.config import RenderConfig
+    from robosimgs_tpu_torch.render.gathered import tile_image
+    from robosimgs_tpu_torch.render.kernels import (composite_bwd,
+                                                    composite_bwd_plain,
+                                                    composite_fwd,
+                                                    composite_fwd_plain)
+    from robosimgs_tpu_torch.render.mesh_raster import rasterize_mesh
+    from robosimgs_tpu_torch.render.project import Projected, project
+    from robosimgs_tpu_torch.render.rasterize import rasterize
+    from robosimgs_tpu_torch.render.tiled import (composite_tiled,
+                                                  composite_tiled_batch,
+                                                  stack_projected)
+    from robosimgs_tpu_torch.render.tiles import num_tiles
+    from robosimgs_tpu_torch.scenegen.rollout import ArticulatedObject
+    from robosimgs_tpu_torch.scenegen.trajectory import load_trajectory
+    from robosimgs_tpu_torch.tools.workloads import (ROLLOUT_MESH, bench_scene,
+                                                     rollout_scene, time_ms,
+                                                     write_rollout_inputs,
+                                                     write_rollout_object)
+    from robosimgs_tpu_torch.train.bilagrid import (apply_bilagrid,
+                                                    identity_bilagrid)
+    from robosimgs_tpu_torch.train.data import (Frame, camera_extent,
+                                                synthetic_scene)
+    from robosimgs_tpu_torch.train.losses import photometric_loss
+    from robosimgs_tpu_torch.train.trainer import TrainConfig, Trainer
+    from robosimgs_tpu_torch.utils.imresize import read_png_rgb
+
+    t11 = time.perf_counter()
+    res_out = {}
+
+    # 11a. the bilateral grid: 1920x1080 (32 blocks of 34 rows) and 256x256
+    gen = torch.Generator().manual_seed(30)
+    grid0 = identity_bilagrid(1, (8, 8, 4), device="cpu")[0] \
+        + 0.05 * torch.randn((8, 8, 4, 12), generator=gen)
+    for h, w in ((1080, 1920), (256, 256)):
+        rgb = torch.rand((h, w, 3), generator=gen)
+        wts = torch.randn((h, w, 3), generator=gen)
+        got = {}
+        for d in ("cpu", "cuda"):
+            gr = grid0.to(d, copy=True).requires_grad_(True)
+            out = apply_bilagrid(gr, rgb.to(d))
+            (out * wts.to(d)).sum().backward()
+            got[d] = (out.detach().cpu(), gr.grad.cpu())
+        v_err = float((got["cuda"][0] - got["cpu"][0]).abs().max())
+        g_err = float((got["cuda"][1] - got["cpu"][1]).abs().max())
+        g_max = float(got["cpu"][1].abs().max())
+        gr_d = grid0.to(dev, copy=True).requires_grad_(True)
+        rgb_d, wts_d = rgb.to(dev), wts.to(dev)
+
+        def fwd_bwd():
+            gr_d.grad = None
+            (apply_bilagrid(gr_d, rgb_d) * wts_d).sum().backward()
+
+        with torch.no_grad():
+            fwd_ms = time_ms(lambda: apply_bilagrid(gr_d, rgb_d), reps=20)
+        fb_ms = time_ms(fwd_bwd, reps=20)
+        log(f"[11 leftovers] bilateral grid {w}x{h} (8x8x4): card vs CPU "
+            f"max|out err| {v_err:.3e}, max|grid grad err| {g_err:.3e} of "
+            f"{g_max:.3e}; forward {fwd_ms:.4f} ms, forward+backward "
+            f"{fb_ms:.4f} ms (CUDA events; {smi})")
+        if v_err > 1e-5 or g_err > 1e-4 * g_max:
+            raise AssertionError("the bilateral grid differs on the card")
+        res_out[f"bilagrid_{w}x{h}_ms"] = (fwd_ms, fb_ms)
+
+    # 11b. exposure and the grid in training, on cli.train's synthetic
+    # scene (20,000 Gaussians, 24 cameras, 256x256) with the JAX tests'
+    # tints (cycled over the frames) and vignette, the feature on against
+    # off. Training PSNR: the mean over the last visit of every frame
+    # (one step's PSNR is one frame's). 300 steps each (12 a frame) at
+    # the JAX tests' lr 5e-3; the grid's gate is 11f. No densification
+    # (300 steps end before the default densify_from; 11f's 600 too)
+    n_syn, size = 20_000, 256
+    gt, frames = synthetic_scene(0, n_syn, 24, size, size, sh_degree=2,
+                                 device=dev)
+    rcfg = RenderConfig(tile_capacity=1024)
+    with torch.no_grad():
+        clean = [rasterize(gt, f.camera, rcfg, impl="tiled")["rgb"].cpu()
+                 .numpy() for f in frames]
+    pts = gt.means[gt.alive].cpu().numpy()
+    pts = pts + np.random.default_rng(0).normal(
+        scale=0.02, size=pts.shape).astype(np.float32)
+    extent = camera_extent(frames)
+    tints = np.array([[1.3, 0.8, 1.0], [0.8, 1.2, 0.9], [1.0, 1.0, 1.3],
+                      [0.9, 0.9, 0.7]], np.float32)
+    yy, xx = np.mgrid[0:size, 0:size].astype(np.float32)
+    c0 = (size - 1) / 2.0
+    vignette = (1.0 - 0.55 * np.clip(((yy - c0) ** 2 + (xx - c0) ** 2)
+                                     / c0 ** 2, 0, 1))[:, :, None]
+    tinted = [Frame(camera=f.camera, image=np.clip(c * tints[i % 4], 0, 1))
+              for i, (f, c) in enumerate(zip(frames, clean))]
+    darkened = [Frame(camera=f.camera, image=np.clip(c * vignette, 0, 1))
+                for f, c in zip(frames, clean)]
+    def colour_runs(feature, fr, n_it, lr, gate, off=None):
+        """The feature off and on (at learning rate lr), n_it steps;
+        off: the PSNR of an off run these settings would repeat (the
+        feature's lr is all they change), not run again."""
+        psnrs = {} if off is None else {False: off}
+        n_fr = len(fr)
+        for on in ((False, True) if off is None else (True,)):
+            cfg_f = TrainConfig(
+                iterations=n_it, render=rcfg, scene_extent=extent,
+                densify_from=10**9, fused_steps=10, log_every=1,
+                exposure_lr=lr, bilagrid_shape=(6, 6, 3), bilagrid_lr=lr,
+                bilagrid_tv_lambda=1.0, **{feature: on})
+            tr = Trainer(cfg_f, Gaussians.from_points(
+                pts, sh_degree=3, capacity=24576, device=dev), fr)
+            t0 = time.perf_counter()
+            tr.run(progress=False)
+            torch.cuda.synchronize()
+            psnrs[on] = float(np.mean([h["psnr"]
+                                       for h in tr.history[-n_fr:]]))
+            log(f"  {feature} {f'on, lr {lr:g}' if on else 'off'}, {n_fr} "
+                f"cameras: {n_it} steps ({n_it // n_fr} a frame) in "
+                f"{time.perf_counter() - t0:.1f} s (graph captures "
+                + ", ".join(f"{c:.2f}" for c in
+                            tr._fused_steps_fn.capture_seconds)
+                + f" s), training psnr over one visit of each frame by "
+                f"step: " + " ".join(
+                    f"{i}:{np.mean([h['psnr'] for h in tr.history[i:i + n_fr]]):.2f}"
+                    for i in range(0, n_it, n_it // 6))
+                + f" -> {psnrs[on]:.2f}")
+        log(f"  {feature}, {n_fr} cameras, {n_it} steps, lr {lr:g}: "
+            f"post-correction {psnrs[True]:.2f} against {psnrs[False]:.2f} "
+            f"dB off ("
+            + ("the gate" if gate else "reported, not gated") + ")")
+        if gate and not psnrs[True] > psnrs[False]:
+            raise AssertionError(f"{feature}: post-correction PSNR "
+                                 f"{psnrs[True]:.2f} does not beat "
+                                 f"{psnrs[False]:.2f}")
+        res_out[f"{feature}_{n_it}steps_lr{lr:g}_psnr"] = (psnrs[False],
+                                                          psnrs[True])
+        return psnrs
+
+    colour_runs("exposure", tinted, 300, 5e-3, True)
+    grid_300 = colour_runs("bilateral_grid", darkened, 300, 5e-3, False)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        cli_train.main(["--synthetic", str(n_syn), "--iterations", "600",
+                        "--capacity", "65536", "--exposure",
+                        "--bilateral-grid", "--output", tmp])
+        cli_s = time.perf_counter() - t0
+        with open(os.path.join(tmp, "train_summary.json")) as fh:
+            hist = json.load(fh)["history"]
+        view = os.path.join(tmp, "trained.png")
+        composite_fwd.launches = 0
+        cli_render.main([os.path.join(tmp, "scene.ply"), "--output", view,
+                         "--eye", "4", "0", "1", "--width", "256",
+                         "--height", "256"])
+        img = read_png_rgb(view)
+    log(f"  cli.train --synthetic {n_syn} --iterations 600 --capacity 65536 "
+        f"--exposure --bilateral-grid: {cli_s:.1f} s, psnr by log step "
+        + " ".join(f"{h['step']}:{h['psnr']:.2f}" for h in hist)
+        + f"; scene.ply rendered 256x256, std {img.std():.1f}")
+    if not hist[-1]["psnr"] > hist[0]["psnr"]:
+        raise AssertionError("cli.train with colour correction did not "
+                             "raise PSNR")
+    if img.shape != (256, 256, 3) or int(img.std() * 1000) == 0 \
+            or composite_fwd.launches != 1:
+        raise AssertionError("the trained scene did not render")
+
+    # 11c. fused_steps at the bench workload: eager steps against replays
+    g, cam, cfg = bench_scene(dev)
+    res = cam.width
+    bench_frames = [Frame(camera=cam, image=np.zeros((res, res, 3),
+                                                     np.float32))]
+    cfg_b = TrainConfig(render=cfg, impl="tiled", sh_warmup_every=1,
+                        densify_from=10**9, opacity_reset_interval=10**9,
+                        dynamic_pool=False, log_every=10**9)
+    n_steps = 100
+    step_stats = {}
+    for fused in (0, 10):
+        tr = Trainer(dataclasses.replace(cfg_b, fused_steps=fused), g,
+                     bench_frames)
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        tr.run(iterations=20, progress=False)      # warm; the capture
+        torch.cuda.synchronize()
+        mem1, peak = torch.cuda.memory_allocated(), \
+            torch.cuda.max_memory_allocated()
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        start.record()
+        tr.run(iterations=n_steps, progress=False)
+        stop.record()
+        torch.cuda.synchronize()
+        host = (time.perf_counter() - t0) * 1e3 / n_steps
+        events_ms = start.elapsed_time(stop) / n_steps
+        # busy and wall from one profiled window: the union of the
+        # device's intervals in the trace over the window's host wall
+        n_prof = 20
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            tr.run(iterations=n_prof, progress=False)
+            torch.cuda.synchronize()
+            prof_wall = (time.perf_counter() - t0) * 1e3 / n_prof
+        events = [e for e in prof.key_averages()
+                  if e.device_type == torch.autograd.DeviceType.CUDA
+                  and e.self_device_time_total > 0]
+        n_kern = sum(e.count for e in events) / n_prof
+        per_kernel = kernel_counts(prof, n_prof)
+        union, summed, _ = trace_busy(prof)
+        busy, summed = union / n_prof, summed / n_prof
+        capture = (tr._fused_steps_fn.capture_seconds if fused else [])
+        step_stats[fused] = dict(host=host, events=events_ms, busy=busy,
+                                 summed=summed, prof_wall=prof_wall,
+                                 idle=1 - busy / prof_wall, kernels=n_kern,
+                                 per_kernel=per_kernel)
+        log(f"  bench train step {'graph replay (fused_steps 10)' if fused else 'eager'}"
+            f": host wall {host:.4f} ms, CUDA events {events_ms:.4f} ms; "
+            f"profiled window: host wall {prof_wall:.4f} ms, device busy "
+            f"{busy:.4f} ms (union of the trace's intervals; summed "
+            f"{summed:.4f}), {n_kern:.1f} kernels a step (composite_fwd "
+            f"{per_kernel['composite_fwd']:.2f}, composite_bwd "
+            f"{per_kernel['composite_bwd']:.2f}), idle share "
+            f"{1 - busy / prof_wall:.3f}; memory {mem0 / 2**20:.1f} -> "
+            f"{mem1 / 2**20:.1f} MiB held, peak {peak / 2**20:.1f} MiB"
+            + (f"; capture {capture[0]:.3f} s" if capture else ""))
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
+            log(f"    {e.self_device_time_total / 1e3 / n_prof:8.4f} ms "
+                f"x{e.count / n_prof:<6.1f} {e.key[:80]}")
+        del tr
+    graphed = step_stats[10]["per_kernel"]
+    if min(graphed.values()) < 1.0:
+        raise AssertionError(f"the graphed step launched no compositing "
+                             f"kernel: {graphed}")
+    res_out["graph_launches_per_step"] = graphed
+    res_out["graph_steps"] = step_stats
+
+    # step for step: fused_steps 10 against 0 on the synthetic scene,
+    # across densify rounds (30, 60), a pool resize (30) and an opacity
+    # reset (60)
+    runs = {}
+    for fused in (0, 10):
+        cfg_s = TrainConfig(iterations=120, render=rcfg, scene_extent=extent,
+                            log_every=5, densify_from=30, densify_until=90,
+                            densify_interval=30, opacity_reset_interval=60,
+                            fused_steps=fused)
+        tr = Trainer(cfg_s, Gaussians.from_points(
+            pts, sh_degree=3, capacity=65536, device=dev),
+            [Frame(camera=f.camera, image=c) for f, c in zip(frames, clean)])
+        tr.run(progress=False)
+        torch.cuda.synchronize()
+        runs[fused] = tr
+    a, b = runs[10], runs[0]
+    loss_err = max(abs(x["loss"] - y["loss"]) / max(abs(y["loss"]), 1e-12)
+                   for x, y in zip(a.history, b.history))
+    diffs = {k: float((getattr(a.state.gaussians, k)
+                       - getattr(b.state.gaussians, k)).abs().max())
+             for k in ("means", "quats", "log_scales", "logit_opacities",
+                       "sh_dc", "sh_rest")}
+    equal = all(torch.equal(getattr(a.state.gaussians, f.name),
+                            getattr(b.state.gaussians, f.name))
+                for f in dataclasses.fields(a.state.gaussians)) and all(
+        x["loss"] == y["loss"] for x, y in zip(a.history, b.history))
+    log(f"  fused_steps 10 vs 0, 120 steps (densify at 30 and 60, pool "
+        f"{b.state.gaussians.capacity} after the resize, opacity reset at "
+        f"60, {len(a._fused_steps_fn.capture_seconds)} captures): "
+        f"{len(a.history)} logged losses, max relative difference "
+        f"{loss_err:.3e}; max|diff| "
+        + " ".join(f"{k} {v:.3e}" for k, v in diffs.items())
+        + f"; bit-equal: {equal}; alive {int(a.state.gaussians.num_alive)}")
+    if [h["step"] for h in a.history] != [h["step"] for h in b.history] \
+            or len(a._fused_steps_fn.capture_seconds) < 2:
+        raise AssertionError("the fused run logged other steps or never "
+                             "captured a resized pool")
+    for k in ("means", "quats", "log_scales", "sh_dc", "sh_rest"):
+        if not torch.allclose(getattr(a.state.gaussians, k),
+                              getattr(b.state.gaussians, k), rtol=1e-5,
+                              atol=1e-6):
+            raise AssertionError(f"fused {k} differ from the eager run's")
+    if not torch.allclose(a.state.gaussians.logit_opacities,
+                          b.state.gaussians.logit_opacities, rtol=1e-5,
+                          atol=1e-5) or any(
+            abs(x["loss"] - y["loss"]) > 1e-5 * abs(y["loss"]) + 1e-6
+            for x, y in zip(a.history, b.history)):
+        raise AssertionError("the fused run's opacities or losses differ")
+    res_out["fused_equal"] = equal
+    del runs, a, b
+
+    # 11d. composite_tiled_batch at the rollout workload, with the mesh's
+    # depth limit at step 0
+    g_r, cams, cfg_r = rollout_scene(dev)
+    W, H = cams[0].width, cams[0].height
+    tx, ty = num_tiles(W, H, cfg_r.tile_size)
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = ArticulatedObject.from_urdf(write_rollout_object(tmp))
+        traj_path, _ = write_rollout_inputs(tmp, obj.model)
+        traj, poses = load_trajectory(traj_path, [obj.model])
+    with torch.no_grad():
+        meshes = obj.posed_meshes(traj[0], base_pose=poses[0, 0], device=dev)
+        depth = torch.stack([merge_mesh_layers([
+            {k: o[k] for k in ("rgb", "depth", "mask", "face_id")}
+            for o in (rasterize_mesh(v, f, c, vertex_colors=col,
+                                     cfg=ROLLOUT_MESH)
+                      for v, f, col in meshes)])["depth"] for c in cams])
+        projs = stack_projected([project(g_r, c, cfg_r) for c in cams])
+        composite_fwd.launches = composite_bwd.launches = 0
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            out_b = composite_tiled_batch(projs, W, H, cfg_r,
+                                          return_stats=True,
+                                          depth_limit=depth)
+            torch.cuda.synchronize()
+        batch_launches = composite_fwd.launches
+        prof_fwd = kernel_counts(prof, 1)["composite_fwd"]
+        singles = [composite_tiled(project(g_r, c, cfg_r), W, H, cfg_r,
+                                   depth_limit=depth[i])
+                   for i, c in enumerate(cams)]
+        img_err = max(float((out_b[k][i] - singles[i][k]).abs().max())
+                      for i in range(len(cams))
+                      for k in ("rgb", "alpha", "depth"))
+        img_equal = all(torch.equal(out_b[k][i], singles[i][k])
+                        for i in range(len(cams))
+                        for k in ("rgb", "alpha", "depth"))
+    trunc_b = [int(x) for x in out_b["stats"].truncated_gaussians]
+    log(f"  composite_tiled_batch {len(cams)} x {W}x{H} ({len(cams)} x "
+        f"{tx * ty} tiles): wrapper launches {batch_launches}, profiler "
+        f"composite_fwd kernels {prof_fwd:.0f}; truncated splats per camera "
+        f"{trunc_b}; against {len(cams)} composite_tiled calls max|err| "
+        f"{img_err:.3e}, bit-equal {img_equal}")
+    if batch_launches != 1 or prof_fwd != 1 or any(trunc_b):
+        raise AssertionError("the batch did not composite in one launch")
+    if img_err > 1e-6:
+        raise AssertionError("the batch differs from per-camera composites")
+    # the kernel against its plain version at this shape
+    with torch.no_grad():
+        binned = [bin_and_gather_packed(project(g_r, c, cfg_r), W, H, cfg_r)
+                  for c in cams]
+        geom_b = torch.cat([x[0] for x in binned])
+        feat_b = torch.cat([x[1] for x in binned])
+        counts_b = torch.cat([x[2] for x in binned])
+        dlim_b = torch.cat([tile_image(d, tx, ty, cfg_r.tile_size,
+                                       pad_value=float("inf"))
+                            for d in depth])[..., None].contiguous()
+        T = tx * ty
+        kw_b = dict(tiles_x=tx, cfg=cfg_r, n_tiles_per_image=T, has_dlim=True)
+        got_b = composite_fwd(geom_b, feat_b, counts_b, dlim_b, **kw_b)
+        torch.cuda.synchronize()
+        batch_err, _ = compare_fwd(got_b, composite_fwd_plain(
+            geom_b, feat_b, counts_b, dlim_b, **kw_b),
+            f"batch {len(cams)} x {W}x{H} mesh depth limit",
+            (geom_b, counts_b, dlim_b, kw_b))
+    # the gradient w.r.t. the projections against the per-camera sum
+    fields = ("means2d", "conics", "colors", "opacities")
+    wts = torch.randn((len(cams), H, W, 3),
+                      generator=torch.Generator().manual_seed(31)).to(dev)
+    leaves = {f: getattr(projs, f).clone().requires_grad_(True)
+              for f in fields}
+    composite_bwd.launches = 0
+    (composite_tiled_batch(dataclasses.replace(projs, **leaves), W, H, cfg_r,
+                           depth_limit=depth)["rgb"] * wts).sum().backward()
+    torch.cuda.synchronize()
+    bwd_batch_launches = composite_bwd.launches
+    each = {f: getattr(projs, f).clone().requires_grad_(True) for f in fields}
+    for i in range(len(cams)):
+        p_i = Projected(**{fl.name: (each[fl.name][i] if fl.name in each
+                                     else None if getattr(projs, fl.name)
+                                     is None else getattr(projs, fl.name)[i])
+                           for fl in dataclasses.fields(Projected)})
+        (composite_tiled(p_i, W, H, cfg_r, depth_limit=depth[i])["rgb"]
+         * wts[i]).sum().backward()
+    grad_errs = {f: (float((leaves[f].grad - each[f].grad).abs().max()),
+                     float(each[f].grad.abs().max())) for f in fields}
+    log(f"  batch gradient ({bwd_batch_launches} backward launch) against "
+        f"the per-camera sum: "
+        + ", ".join(f"{f} {e:.3e} of {m:.3e}" for f, (e, m)
+                    in grad_errs.items()))
+    if bwd_batch_launches != 1 or any(e > 1e-3 * m or m == 0.0
+                                      for e, m in grad_errs.values()):
+        raise AssertionError("the batch's gradient differs from the "
+                             "per-camera sum")
+    del leaves, each
+    with torch.no_grad():
+        batch_ms = time_ms(lambda: composite_fwd(geom_b, feat_b, counts_b,
+                                                 dlim_b, **kw_b), reps=100)
+        batch_plain_ms = time_ms(lambda: composite_fwd_plain(
+            geom_b, feat_b, counts_b, dlim_b, **kw_b), reps=2, warmup=1)
+        singles_ms = sum(time_ms(lambda i=i: composite_fwd(
+            geom_b[i * T:(i + 1) * T], feat_b[i * T:(i + 1) * T],
+            counts_b[i * T:(i + 1) * T], dlim_b[i * T:(i + 1) * T],
+            tiles_x=tx, cfg=cfg_r, has_dlim=True), reps=100)
+            for i in range(len(cams)))
+        frame_batch_ms = time_ms(lambda: composite_tiled_batch(
+            stack_projected([project(g_r, c, cfg_r) for c in cams]), W, H,
+            cfg_r, depth_limit=depth), reps=10)
+        frame_single_ms = time_ms(lambda: [composite_tiled(
+            project(g_r, c, cfg_r), W, H, cfg_r, depth_limit=depth[i])
+            for i, c in enumerate(cams)], reps=10)
+        batch_bound_ms, batch_bound_by, batch_detail, _ = fwd_bound(
+            geom_b, counts_b, got_b[2], dlim_b, tx, cfg_r, T)
+    log(f"  composite_fwd on {geom_b.shape[0]} tiles {batch_ms:.4f} ms "
+        f"against 4 single-camera launches {singles_ms:.4f} ms, plain "
+        f"{batch_plain_ms:.4f} ms; bound {batch_bound_ms:.6f} ms "
+        f"({batch_detail}), share {batch_bound_ms / batch_ms:.4f}; "
+        f"projections + composite_tiled_batch {frame_batch_ms:.4f} ms "
+        f"against 4 x (project + composite_tiled) {frame_single_ms:.4f} ms")
+    res_out.update(batch_launches=batch_launches, batch_ms=batch_ms,
+                   batch_plain_ms=batch_plain_ms,
+                   batch_bound_ms=batch_bound_ms,
+                   batch_max_abs_err=batch_err)
+    del g_r, projs, out_b, singles, binned, geom_b, feat_b
+
+    # 11e. Trainer steps on 32x32 tiles (the JAX package's tile size for
+    # its 3M-Gaussian config), capacities measured for them; first both
+    # kernels against their plain versions at that shape, and the
+    # backward's time and bound there
+    cfg32 = recommend_capacities(g, [cam], base=RenderConfig(tile_size=32))
+    with torch.no_grad():
+        geom_w, feat_w, counts_w, st32 = bin_and_gather_packed(
+            project(g, cam, cfg32), res, res, cfg32)
+        tx32 = num_tiles(res, res, 32)[0]
+        kw_w = dict(tiles_x=tx32, cfg=cfg32, has_dlim=False)
+        fwd_w = composite_fwd(geom_w, feat_w, counts_w, None, **kw_w)
+        torch.cuda.synchronize()
+        log(f"  32x32 tiles at the trainer's capacities: T="
+            f"{geom_w.shape[0]} K={geom_w.shape[2]}, counts max "
+            f"{int(counts_w.max())}, nblk max {int(fwd_w[2].max())}")
+        fwd_err = compare_fwd(fwd_w, composite_fwd_plain(
+            geom_w, feat_w, counts_w, None, **kw_w),
+            f"32x32 tiles K={geom_w.shape[2]}",
+            (geom_w, counts_w, None, kw_w))[0]
+        gout_w = torch.randn(fwd_w[0].shape, generator=torch.Generator()
+                             .manual_seed(32)).to(dev)
+        args_w = (geom_w, feat_w, counts_w, None, gout_w, *fwd_w[1:])
+        got_w = composite_bwd(*args_w, **kw_w)
+        torch.cuda.synchronize()
+        bwd_err = compare_bwd(got_w, composite_bwd_plain(*args_w, **kw_w),
+                              f"bwd 32x32 tiles K={geom_w.shape[2]}")
+        tile32_ms = time_ms(lambda: composite_bwd(*args_w, **kw_w), reps=100)
+        tile32_plain_ms = time_ms(lambda: composite_bwd_plain(
+            *args_w, **kw_w), reps=2, warmup=1)
+        tile32_bound_ms, tile32_bound_by, tile32_detail = bwd_bound(
+            geom_w, counts_w, fwd_w[2], None, tx32, cfg32)
+    log(f"  composite_bwd on 32x32 tiles (T={geom_w.shape[0]}, K="
+        f"{geom_w.shape[2]}) {tile32_ms:.4f} ms, plain {tile32_plain_ms:.4f} "
+        f"ms; bound {tile32_bound_ms:.6f} ms ({tile32_detail}), share "
+        f"{tile32_bound_ms / tile32_ms:.4f} ({smi})")
+    res_out.update(tile32_ms=tile32_ms, tile32_plain_ms=tile32_plain_ms,
+                   tile32_bound_ms=tile32_bound_ms,
+                   tile32_bound_by=tile32_bound_by, tile32_K=geom_w.shape[2],
+                   tile32_max_abs_err=bwd_err, tile32_fwd_max_abs_err=fwd_err)
+    del geom_w, feat_w, fwd_w, gout_w, args_w, got_w
+    tr = Trainer(TrainConfig(render=cfg32, impl="tiled", sh_warmup_every=1,
+                             densify_from=10**9, opacity_reset_interval=10**9,
+                             dynamic_pool=False, log_every=1), g,
+                 bench_frames)
+    composite_fwd.launches = composite_bwd.launches = 0
+    tr.run(iterations=3, progress=False)
+    torch.cuda.synchronize()
+    l32 = (composite_fwd.launches, composite_bwd.launches)
+    losses = [h["loss"] for h in tr.history]
+    log(f"  Trainer 3 steps on 32x32 tiles: K={cfg32.tile_capacity} M="
+        f"{cfg32.max_tiles_per_gaussian} (recommend_capacities), truncated "
+        f"{int(st32.truncated_gaussians)}, overflowed tiles "
+        f"{int(st32.overflowed_tiles)}, launches {l32}, loss "
+        + " ".join(f"{x:.6f}" for x in losses)
+        + f", overflow {[h['overflow'] for h in tr.history]}")
+    if int(st32.truncated_gaussians) or int(st32.overflowed_tiles) \
+            or l32 != (3, 3) or not all(np.isfinite(losses)):
+        raise AssertionError("the 32x32-tile train steps failed")
+    small = Gaussians.random(torch.Generator().manual_seed(2), 2000,
+                             sh_degree=3, extent=1.5, device=dev)
+    small = small.replace(log_scales=small.log_scales + 0.5 * torch.randn(
+        small.log_scales.shape, generator=torch.Generator().manual_seed(6)
+    ).to(dev))
+    cam_s = Camera.look_at([4.0, 0.5, 1.2], [0, 0, 0], [0, 0, 1], 60.0, 64,
+                           48, device=dev)
+    cfg_s = RenderConfig(tile_size=32, tile_capacity=1024)
+    grads = {}
+    for d in ("cpu", "cuda"):
+        gg = small.to(d)
+        params = {k: getattr(gg, k).clone().requires_grad_()
+                  for k in ("means", "quats", "log_scales", "logit_opacities",
+                            "sh_dc", "sh_rest")}
+        out_g = composite_tiled(project(gg.replace(**params), cam_s.to(d),
+                                        cfg_s), 64, 48, cfg_s)
+        photometric_loss(out_g["rgb"], torch.full((48, 64, 3), 0.3,
+                                                  device=d)).backward()
+        grads[d] = {k: v.grad.cpu() for k, v in params.items()}
+    for k, want_g in grads["cpu"].items():
+        e = float((grads["cuda"][k] - want_g).abs().max())
+        scale = float(want_g.abs().max())
+        log(f"  32x32 grad {k}: max|card - cpu| {e:.3e} of max {scale:.3e}")
+        if e > 1e-3 * scale:
+            raise AssertionError(f"{k} gradients differ on the card at 32x32")
+
+    # 11f. the grid's gate: 11b's run at lr 1e-3 against 11b's off run.
+    # The JAX test's lr 5e-3 (4 cameras, 40 Gaussians) loses on 24
+    # cameras, and more steps widen the gap (PERF.md): the 600-step
+    # pair is reported
+    colour_runs("bilateral_grid", darkened, 300, 1e-3, True,
+                off=grid_300[False])
+    colour_runs("bilateral_grid", darkened, 600, 5e-3, False)
+    log(f"  phase 11 {time.perf_counter() - t11:.1f} s")
+    return res_out
 
 
 if __name__ == "__main__":

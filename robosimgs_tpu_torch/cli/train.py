@@ -52,11 +52,13 @@ def build_parser():
                    help="scale-ratio regularizer weight (splatfacto "
                         "use_scale_regularization; 0 = off)")
     p.add_argument("--exposure", action="store_true",
-                   help="per-frame affine exposure correction (not ported "
-                        "yet)")
+                   help="per-frame affine exposure correction "
+                        "(auto-exposure captures)")
     p.add_argument("--bilateral-grid", action="store_true",
-                   help="per-frame bilateral-grid color correction (not "
-                        "ported yet)")
+                   help="per-frame bilateral-grid color correction "
+                        "(splatfacto use_bilateral_grid: spatially-"
+                        "varying affine for vignetting / local white-"
+                        "balance drift)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: cuda)")
     return p
@@ -64,11 +66,6 @@ def build_parser():
 
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    for flag, on in (("--exposure", args.exposure),
-                     ("--bilateral-grid", args.bilateral_grid)):
-        if on:
-            raise SystemExit(f"{flag} is not ported yet (ROADMAP queue 1 "
-                             f"item 2, leftovers)")
     import numpy as np
     import torch
 
@@ -155,6 +152,8 @@ def main(argv=None):
         scene_extent=scene_extent,
         densify=densify,
         scale_reg_lambda=args.scale_reg,
+        exposure=args.exposure,
+        bilateral_grid=args.bilateral_grid,
     )
 
     trainer = Trainer(cfg, init, train_frames, eval_frames)

@@ -98,8 +98,10 @@ class Camera:
         t = self.c2w[..., :3, 3]
         Rt = R.transpose(-1, -2)
         top = torch.cat([Rt, -(Rt @ t[..., None])], dim=-1)
-        bottom = torch.tensor([0.0, 0.0, 0.0, 1.0], dtype=top.dtype,
-                              device=top.device).expand(top.shape[:-2] + (1, 4))
+        # (0, 0, 0, 1) made on the device: no host copy, so a CUDA graph
+        # can capture it
+        bottom = torch.cat([torch.zeros_like(t), torch.ones_like(t[..., :1])],
+                           dim=-1)[..., None, :]
         return torch.cat([top, bottom], dim=-2)
 
     @property

@@ -64,10 +64,13 @@ def opt_state_from_numpy(d, device) -> OptState:
     state: a MultiTransformState whose inner_states[label].inner_state
     is (ScaleByAdamState(count, mu, nu), ScaleByScheduleState(count) for
     the scheduled means lr, or an empty state), mu and nu being dicts
-    over every field with the group's own array under its label."""
+    over every field with the group's own array under its label. The
+    "exposure" and "bilagrid" labels come along where the state has
+    them."""
     inner = _get(d, "inner_states")
     state = {}
-    for label in FLOAT_FIELDS:
+    for label in FLOAT_FIELDS + tuple(k for k in ("exposure", "bilagrid")
+                                      if k in inner):
         chain = _get(inner[label], "inner_state")
         adam = chain[0]
         # a NamedTuple's fields: an empty state is a tuple, whose
@@ -85,15 +88,21 @@ def opt_state_from_numpy(d, device) -> OptState:
 
 def train_state_from_numpy(d, device, generator=None) -> TrainState:
     """The JAX package's TrainState (gaussians, optax state, densify
-    state, step). Its PRNG key has no torch counterpart: the port's state
-    takes `generator` (default: a CPU generator seeded 0)."""
+    state, step, exposure and bilateral grids where set). Its PRNG key
+    has no torch counterpart: the port's state takes `generator`
+    (default: a CPU generator seeded 0)."""
+    def optional(name):
+        v = d.get(name) if isinstance(d, Mapping) else getattr(d, name, None)
+        return None if v is None else _tensor(v, device)
+
     return TrainState(
         gaussians=gaussians_from_numpy(_get(d, "gaussians"), device),
         opt_state=opt_state_from_numpy(_get(d, "opt_state"), device),
         densify_state=densify_state_from_numpy(_get(d, "densify_state"),
                                                device),
         step=int(_get(d, "step")),
-        generator=generator or torch.Generator().manual_seed(0))
+        generator=generator or torch.Generator().manual_seed(0),
+        exposure=optional("exposure"), bilagrid=optional("bilagrid"))
 
 
 def _dense(tree, prefix) -> dict:

@@ -269,8 +269,10 @@ def bin_and_gather_packed(proj: Projected, width: int, height: int,
         need = (torch.clamp_max(surv, M) - Ms).clamp_min(0).sum()
         got = (torch.clamp_max(spill_cover, M) - Ms).clamp_min(0).sum()
         spill_dropped_pairs = need - got
-        in_spill = torch.zeros((n,), dtype=torch.bool, device=dev)
-        in_spill[spill_idx] = True
+        # index_fill_ takes True as a kernel argument (an indexed
+        # assignment copies it from the host, which a CUDA graph refuses)
+        in_spill = torch.zeros((n,), dtype=torch.bool,
+                               device=dev).index_fill_(0, spill_idx, True)
         spill_missed = (surv > Ms) & ~in_spill
     else:
         packed_key = ((tid << bits) | rank[:, None]).reshape(-1)

@@ -42,9 +42,9 @@ sums over pixels; the csrc/ sources have the details.
 
 On a CPU tensor each wrapper runs its plain torch version
 (`composite_fwd_plain`, `composite_bwd_plain`); on a CUDA tensor it
-launches the kernel or raises. The forward kernel takes tiles of up to
-32x32 pixels, the backward kernel tiles of up to 256 pixels in whole
-warps (16x16, 8x8).
+launches the kernel or raises. Both kernels take tiles of up to 32x32
+pixels, any count P <= 1024 (whole warps up to 16x16 in one instance,
+everything else in another).
 """
 
 from __future__ import annotations
@@ -66,8 +66,6 @@ LT_GROUP = 16
 # tiles per pass of the plain versions: bounds their (tiles, P, BK)
 # temporaries
 _PLAIN_TILE_CHUNK = 128
-# pixels per tile the backward kernel takes (one thread each, whole warps)
-_BWD_MAX_PIXELS = 256
 
 
 def _check_chunking(cfg: RenderConfig, CK: int) -> None:
@@ -308,10 +306,6 @@ def composite_bwd(geom: torch.Tensor, feat: torch.Tensor,
         raise ValueError("composite_bwd on the card needs the forward's "
                          "log_t_groups")
     _check_aligned(geom, feat, "composite_bwd")
-    P = cfg.tile_size * cfg.tile_size
-    if P % 32 or P > _BWD_MAX_PIXELS:
-        raise ValueError(f"composite_bwd needs tile_size**2 a multiple of 32 "
-                         f"and at most {_BWD_MAX_PIXELS}, got {P}")
     T, _, K = geom.shape
     dgeom = torch.empty((T, 8, K), dtype=torch.float32, device=geom.device)
     dfeat = torch.empty((T, 8, K), dtype=torch.float32, device=geom.device)

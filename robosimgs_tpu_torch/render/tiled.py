@@ -6,17 +6,24 @@ the hand-written CUDA forward and backward kernels on the card and their
 plain torch versions on the CPU, so the path is differentiable: the
 per-Gaussian gradient is the transpose of the binner's row gather
 (`packed[sel]`), accumulated by torch autograd.
+
+`composite_tiled_batch` composites several cameras at once: each camera
+is binned on its own, and the C x T tiles are concatenated on the tile
+axis and composited by one launch of the forward kernel (and one of the
+backward), tile t taking the pixel coordinates of tile t % T.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional
+import dataclasses
+from typing import Dict, Optional, Sequence
 
 import torch
 
-from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
+from robosimgs_tpu_torch.render.binning import BinStats, bin_and_gather_packed
 from robosimgs_tpu_torch.render.config import RenderConfig
-from robosimgs_tpu_torch.render.gathered import tile_image, untile
+from robosimgs_tpu_torch.render.gathered import (composite_gathered,
+                                                 tile_image, untile)
 from robosimgs_tpu_torch.render.kernels import Composite
 from robosimgs_tpu_torch.render.project import Projected
 from robosimgs_tpu_torch.render.tiles import num_tiles
@@ -97,8 +104,6 @@ def composite_from_tiles(
     ("none"/"xyz"/"xy", see _normal_mode): adds a "normal" unit-vector
     map to the output when feat rows carry splat normals.
     """
-    if background is None:
-        background = torch.zeros((3,), dtype=geom.dtype, device=geom.device)
     tiles_x, tiles_y = num_tiles(width, height, cfg.tile_size)
 
     has_dlim = dlim is not None
@@ -108,9 +113,96 @@ def composite_from_tiles(
         tiles_x, cfg, 0, has_dlim)
 
     img = untile(out_tiles, tiles_x, tiles_y, width, height, cfg.tile_size)
+    return _image_outputs(img, background, normal_mode)
+
+
+def _image_outputs(img: torch.Tensor, background: Optional[torch.Tensor],
+                   normal_mode: str) -> Dict[str, torch.Tensor]:
+    """(..., H, W, 8) composited channels -> rgb over the background
+    (black if None), alpha, depth and (normal_mode not "none") the
+    normal map."""
+    if background is None:
+        background = img.new_zeros((3,))
     acc_a = img[..., 4]
     rgb = img[..., :3] + (1.0 - acc_a)[..., None] * background.to(img.device)
     out = {"rgb": rgb, "alpha": acc_a, "depth": img[..., 3]}
     if normal_mode != "none":
         out["normal"] = _normal_map(img, acc_a, normal_mode)
+    return out
+
+
+def stack_projected(projs: Sequence[Projected]) -> Projected:
+    """One Projected with a leading camera axis (C, N, ...) from one per
+    camera (the JAX package stacks them with tree.map)."""
+    fields = {}
+    for f in dataclasses.fields(Projected):
+        vals = [getattr(p, f.name) for p in projs]
+        fields[f.name] = None if vals[0] is None else torch.stack(vals)
+    return Projected(**fields)
+
+
+def _camera(projs: Projected, c: int) -> Projected:
+    return Projected(**{f.name: None if getattr(projs, f.name) is None
+                        else getattr(projs, f.name)[c]
+                        for f in dataclasses.fields(Projected)})
+
+
+def composite_tiled_batch(
+    projs: Projected,
+    width: int,
+    height: int,
+    cfg: RenderConfig = RenderConfig(),
+    background: Optional[torch.Tensor] = None,
+    compositor: str = "kernel",
+    return_stats: bool = False,
+    depth_limit: Optional[torch.Tensor] = None,
+) -> Dict[str, torch.Tensor]:
+    """Multi-camera composite: `projs` has a leading camera axis (C, ...)
+    (`stack_projected`). Returns rgb/alpha/depth (and the normal map
+    where the splats carry normals) with a leading camera axis, and with
+    return_stats each camera's BinStats stacked (C,). depth_limit is
+    (C, H, W) if given.
+
+    Each camera is binned by `bin_and_gather_packed` (a loop: the JAX
+    package's vmap is the same arithmetic per camera). compositor
+    "kernel" composites the C*T tiles in one `Composite` call (the
+    forward and backward kernels on the card, their plain versions on
+    the CPU: the JAX package's "pallas"); "gathered" runs
+    `composite_gathered` with each tile's within-image index (its "jnp").
+    """
+    tiles_x, tiles_y = num_tiles(width, height, cfg.tile_size)
+    n_cam = projs.means2d.shape[0]
+    binned = [bin_and_gather_packed(_camera(projs, c), width, height, cfg)
+              for c in range(n_cam)]
+    T = binned[0][2].shape[0]
+    P = cfg.tile_size * cfg.tile_size
+    geom = torch.cat([b[0] for b in binned])                # (C*T, 8, K)
+    feat = torch.cat([b[1] for b in binned])
+    counts = torch.cat([b[2] for b in binned]).detach()
+
+    dlim = None   # the kernels' occlusion test is off without a limit
+    if depth_limit is not None:
+        dlim = torch.cat([tile_image(d.detach(), tiles_x, tiles_y,
+                                     cfg.tile_size, pad_value=float("inf"))
+                          for d in depth_limit])            # (C*T, P)
+    if compositor == "kernel":
+        out_tiles = Composite.apply(
+            geom, feat, counts,
+            None if dlim is None else dlim[..., None].contiguous(),
+            tiles_x, cfg, T, dlim is not None)
+    elif compositor == "gathered":
+        t_idx = torch.arange(n_cam * T, device=geom.device) % T
+        out_tiles = composite_gathered(geom, feat, counts, tiles_x, cfg, dlim,
+                                       t_idx=t_idx)
+    else:
+        raise ValueError(f"unknown compositor {compositor!r}")
+
+    imgs = torch.stack([untile(o, tiles_x, tiles_y, width, height,
+                               cfg.tile_size)
+                        for o in out_tiles.reshape(n_cam, T, 8, P)])
+    out = _image_outputs(imgs, background, _normal_mode(projs))
+    if return_stats:
+        out["stats"] = BinStats(**{
+            f.name: torch.stack([getattr(b[3], f.name) for b in binned])
+            for f in dataclasses.fields(BinStats)})
     return out

@@ -15,8 +15,30 @@ import numpy as np
 import torch
 
 
+# Where a max, a min or |x| ties, JAX's gradient differs from torch's
+# clamp and abs: jnp.maximum and jnp.minimum pass half of it to each side
+# at equality, jnp.abs has slope 1 at 0. These three are the port's
+# forms of them wherever the tie is common: on a black background every
+# uncovered pixel renders exactly 0 and matches its target exactly.
+
+
+def maximum(x: torch.Tensor, c: float) -> torch.Tensor:
+    """max(x, c) with jnp.maximum's gradient: half at x == c."""
+    return torch.maximum(x, x.new_full((), c))
+
+
+def minimum(x: torch.Tensor, c: float) -> torch.Tensor:
+    """min(x, c) with jnp.minimum's gradient: half at x == c."""
+    return torch.minimum(x, x.new_full((), c))
+
+
+def absolute(x: torch.Tensor) -> torch.Tensor:
+    """|x| with jnp.abs's gradient: slope 1 at 0 (torch.abs: 0)."""
+    return torch.where(x >= 0.0, x, -x)
+
+
 def l1_loss(pred: torch.Tensor, target: torch.Tensor) -> torch.Tensor:
-    return torch.mean(torch.abs(pred - target))
+    return torch.mean(absolute(pred - target))
 
 
 def psnr(pred: torch.Tensor, target: torch.Tensor,
@@ -46,12 +68,20 @@ def _band_matrix_np(length: int, size: int, sigma: float) -> np.ndarray:
     return m
 
 
+@functools.lru_cache(maxsize=16)
+def _band_matrix(length: int, size: int, sigma: float,
+                 device: torch.device) -> torch.Tensor:
+    """_band_matrix_np on `device`, copied there once (a copy from
+    pageable memory has no place inside a captured CUDA graph)."""
+    return torch.from_numpy(_band_matrix_np(length, size, sigma)).to(device)
+
+
 def _blur(img: torch.Tensor, size: int, sigma: float) -> torch.Tensor:
     """Separable blur of (H, W, C), SAME padding, as two band-matrix
     products in f32."""
     H, W, C = img.shape
-    bh = torch.from_numpy(_band_matrix_np(H, size, sigma)).to(img.device)
-    bw = torch.from_numpy(_band_matrix_np(W, size, sigma)).to(img.device)
+    bh = _band_matrix(H, size, sigma, img.device)
+    bw = _band_matrix(W, size, sigma, img.device)
     x = (bh @ img.reshape(H, W * C)).reshape(H, W, C)
     return torch.einsum("hwc,vw->hvc", x, bw)
 
@@ -104,5 +134,5 @@ def normals_from_depth(depth: torch.Tensor, fx, fy, cx, cy):
     flip = torch.where(torch.sum(n * p, -1) > 0.0, -1.0, 1.0)
     n = n * flip[..., None]
     valid = torch.zeros((h, w), dtype=torch.bool, device=depth.device)
-    valid[1:-1, 1:-1] = True
+    valid[1:-1, 1:-1].fill_(True)    # no host copy: a CUDA graph may hold it
     return n, valid

@@ -11,7 +11,10 @@ does not lend itself to):
   * means get an exponentially decaying lr scaled by the scene extent,
     read through optax.scale_by_schedule's own count BEFORE it is
     incremented, so the first update uses lr(0);
-  * every other field has its own constant lr; eps = 1e-15.
+  * every other field has its own constant lr; eps = 1e-15;
+  * with exposure_lr / bilagrid_lr the state also holds an "exposure"
+    (per-frame color affines) and a "bilagrid" (per-frame bilateral
+    grids) group, each its own Adam (optax's multi_transform labels).
 """
 
 from __future__ import annotations
@@ -90,7 +93,9 @@ class GroupAdam:
     package's optax.multi_transform of per-field optax.adam)."""
 
     def __init__(self, cfg: OptimConfig = OptimConfig(),
-                 scene_extent: float = 1.0):
+                 scene_extent: float = 1.0,
+                 exposure_lr: Optional[float] = None,
+                 bilagrid_lr: Optional[float] = None):
         self.cfg = cfg
         self.lr = {
             "means": means_schedule(cfg, scene_extent),
@@ -100,6 +105,10 @@ class GroupAdam:
             "sh_dc": cfg.sh_dc_lr,
             "sh_rest": cfg.sh_rest_lr,
         }
+        if exposure_lr is not None:
+            self.lr["exposure"] = exposure_lr
+        if bilagrid_lr is not None:
+            self.lr["bilagrid"] = bilagrid_lr
 
     def init(self, params: dict) -> OptState:
         state = {}
@@ -138,8 +147,12 @@ class GroupAdam:
 
 
 def make_optimizer(cfg: OptimConfig = OptimConfig(),
-                   scene_extent: float = 1.0) -> GroupAdam:
-    return GroupAdam(cfg, scene_extent)
+                   scene_extent: float = 1.0,
+                   exposure_lr: Optional[float] = None,
+                   bilagrid_lr: Optional[float] = None) -> GroupAdam:
+    """exposure_lr / bilagrid_lr: when set, the params additionally
+    carry an "exposure" / "bilagrid" entry, each its own Adam group."""
+    return GroupAdam(cfg, scene_extent, exposure_lr, bilagrid_lr)
 
 
 def reset_slots_in_opt_state(state: OptState,
@@ -148,7 +161,9 @@ def reset_slots_in_opt_state(state: OptState,
 
     spawn_mask: (N,) bool — slots whose parameters were overwritten by
     densification; their stale moments must not leak into the new
-    Gaussian's updates. Counts are not per slot and are kept."""
+    Gaussian's updates. Counts are not per slot and are kept. As in the
+    JAX package the rule is the leading dimension, so a per-frame group
+    whose frame count equals the capacity is reset too."""
     def reset(x):
         if x.dim() >= 1 and x.shape[0] == spawn_mask.shape[0]:
             mask = spawn_mask.reshape((-1,) + (1,) * (x.dim() - 1))

@@ -12,9 +12,13 @@ On CUDA tensors the tiled path composites through the hand-written
 forward and backward kernels (render/kernels.py), one launch of each
 per step; on CPU tensors through their plain torch versions.
 
-Not ported yet (each raises NotImplementedError naming its ROADMAP
-item): per-frame exposure correction, the bilateral grid
-(train/bilagrid.py) and fused multi-step dispatch (fused_steps > 1).
+Per-frame color correction, as in the JAX package: an exposure affine
+(TrainConfig.exposure) and a bilateral grid (TrainConfig.bilateral_grid,
+train/bilagrid.py), each indexed by the step's frame, optimized by its
+own Adam group, applied to the rendered image inside the loss (training
+PSNR is post-correction; evaluation stays raw). fused_steps > 1 runs
+chunks of F steps per call (train/graphed.py): a Python loop on the CPU,
+one CUDA graph of the step replayed F times on the card.
 """
 
 from __future__ import annotations
@@ -34,19 +38,22 @@ from robosimgs_tpu_torch.render.project import project
 from robosimgs_tpu_torch.render.rasterize import rasterize
 from robosimgs_tpu_torch.render.reference import composite_reference
 from robosimgs_tpu_torch.render.tiled import composite_tiled
+from robosimgs_tpu_torch.train.bilagrid import (apply_bilagrid,
+                                                identity_bilagrid)
+from robosimgs_tpu_torch.train.bilagrid import tv_loss as bilagrid_tv_loss
 from robosimgs_tpu_torch.train.data import Frame
 from robosimgs_tpu_torch.train.densify import (DensifyConfig, DensifyState,
                                                compact_and_resize,
                                                densify_and_prune,
                                                reset_opacities, update_stats)
-from robosimgs_tpu_torch.train.losses import (normals_from_depth,
+from robosimgs_tpu_torch.train.graphed import (FusedSteps, select,
+                                               stack_frames)
+from robosimgs_tpu_torch.train.losses import (maximum, normals_from_depth,
                                               photometric_loss, psnr, ssim)
 from robosimgs_tpu_torch.train.optim import (FLOAT_FIELDS, AdamGroup,
                                              OptimConfig, OptState,
                                              float_params, make_optimizer,
                                              reset_slots_in_opt_state)
-
-_SH_BANDS = np.array([1] * 3 + [2] * 5 + [3] * 7, np.int32)  # band of each rest coeff
 
 
 def _zero_opacity_moments(opt_state: OptState) -> OptState:
@@ -63,8 +70,8 @@ def _zero_opacity_moments(opt_state: OptState) -> OptState:
 
 @dataclasses.dataclass(frozen=True)
 class TrainConfig:
-    """The JAX package's TrainConfig, field for field (see its comments);
-    `exposure`, `bilateral_grid` and `fused_steps > 1` are not ported."""
+    """The JAX package's TrainConfig, field for field (see its
+    comments)."""
 
     iterations: int = 7000
     ssim_lambda: float = 0.2
@@ -106,6 +113,10 @@ class TrainConfig:
     # normal-consistency regularizer (2DGS-style), tiled impl only
     normal_lambda: float = 0.0
     normal_alpha_gate: float = 0.5
+    # F train steps per call (0/1 = one): chunks never cross a densify,
+    # pool resize, opacity reset or checkpoint, so results are step for
+    # step the unfused loop's; needs one frame resolution and
+    # device-resident targets (ignored in host-streaming mode)
     fused_steps: int = 0
     # target residency: None = host-resident when the targets exceed
     # host_data_threshold bytes, else all uploaded once. Host-resident
@@ -114,30 +125,22 @@ class TrainConfig:
     host_data_threshold: int = 1 << 30
 
 
-def _check_ported(cfg: TrainConfig) -> None:
-    if cfg.exposure:
-        raise NotImplementedError(
-            "TrainConfig.exposure is not ported yet (ROADMAP queue 1 item 2, "
-            "leftovers)")
-    if cfg.bilateral_grid:
-        raise NotImplementedError(
-            "TrainConfig.bilateral_grid (train/bilagrid.py) is not ported "
-            "yet (ROADMAP queue 1 item 2, leftovers)")
-    if cfg.fused_steps > 1:
-        raise NotImplementedError(
-            "TrainConfig.fused_steps > 1 is not ported yet (ROADMAP queue 1 "
-            "item 2, leftovers)")
-
-
 @dataclasses.dataclass
 class TrainState:
     gaussians: Gaussians
     opt_state: OptState
     densify_state: DensifyState
+    # an int; inside the graphed steps a 0-d int64 device tensor
     step: int
     # the densification split draws (a CPU generator: same draws on any
     # device); the JAX package carries a PRNG key here
     generator: torch.Generator
+    # (n_frames, 3, 4) per-frame affine color correction, or None when
+    # TrainConfig.exposure is off
+    exposure: Optional[torch.Tensor] = None
+    # (n_frames, gh, gw, gl, 12) per-frame bilateral grids, or None when
+    # TrainConfig.bilateral_grid is off
+    bilagrid: Optional[torch.Tensor] = None
 
 
 def identity_exposure(n_frames: int, device="cuda") -> torch.Tensor:
@@ -146,18 +149,19 @@ def identity_exposure(n_frames: int, device="cuda") -> torch.Tensor:
     return e[None].repeat(n_frames, 1, 1).to(device)
 
 
-def _sh_mask(step: int, warmup_every: int, n_rest: int,
-             device) -> torch.Tensor:
-    """(n_rest, 1) per-coefficient mask: band b activates at step b*warmup."""
-    active_band = step // warmup_every
-    bands = torch.from_numpy(_SH_BANDS[:n_rest]).to(device)
-    return (bands <= active_band).to(torch.float32)[:, None]
+def _sh_mask(step, warmup_every: int, n_rest: int, device) -> torch.Tensor:
+    """(n_rest, 1) per-coefficient mask: band b activates at step
+    b*warmup. step: an int or a 0-d device tensor. Rest coefficient k
+    (0-based) is of band floor(sqrt(k + 1)) (1, 1, 1, 2 x 5, 3 x 7),
+    made on the device: no host copy, so a CUDA graph can capture it."""
+    bands = torch.arange(1, n_rest + 1, device=device).to(torch.float32)
+    bands = torch.floor(torch.sqrt(bands))
+    return (bands <= step // warmup_every).to(torch.float32)[:, None]
 
 
 def _render_for_training(g: Gaussians, camera: Camera, cfg: TrainConfig,
-                         offset: torch.Tensor, impl: str,
+                         offset: torch.Tensor, impl: str, bg: torch.Tensor,
                          abs_probe: Optional[torch.Tensor] = None):
-    bg = torch.tensor(cfg.background, dtype=torch.float32, device=g.device)
     proj = project(g, camera, cfg.render, means2d_offset=offset,
                    abs_probe=abs_probe)
     if impl == "reference":
@@ -175,11 +179,19 @@ def _render_for_training(g: Gaussians, camera: Camera, cfg: TrainConfig,
     return out, proj
 
 
+def _optimizer(cfg: TrainConfig):
+    return make_optimizer(
+        cfg.optim, cfg.scene_extent,
+        exposure_lr=cfg.exposure_lr if cfg.exposure else None,
+        bilagrid_lr=cfg.bilagrid_lr if cfg.bilateral_grid else None)
+
+
 def make_train_step(cfg: TrainConfig, impl: str) -> Callable:
     """train_step(state, camera, target, frame_idx=0, target_depth=None)
     -> (new state, metrics); metrics are 0-d tensors (read them only
-    where the host needs them: each read waits for the device)."""
-    _check_ported(cfg)
+    where the host needs them: each read waits for the device).
+    frame_idx (an int, or a (1,) int64 device tensor) picks the frame's
+    exposure affine and bilateral grid."""
     if cfg.render.absgrad and impl == "reference":
         raise ValueError("absgrad needs the tiled impl (the reference "
                          "compositor's autograd cannot observe per-pixel "
@@ -192,29 +204,43 @@ def make_train_step(cfg: TrainConfig, impl: str) -> Callable:
             cfg = dataclasses.replace(
                 cfg, render=dataclasses.replace(cfg.render,
                                                 render_normals=True))
-    optimizer = make_optimizer(cfg.optim, cfg.scene_extent)
+    optimizer = _optimizer(cfg)
     absgrad = cfg.render.absgrad
 
     def train_step(state: TrainState, camera: Camera, target: torch.Tensor,
-                   frame_idx: int = 0,
-                   target_depth: Optional[torch.Tensor] = None):
-        del frame_idx   # indexes the per-frame exposure, not ported yet
+                   frame_idx=0, target_depth: Optional[torch.Tensor] = None):
         g = state.gaussians
         dev = g.device
+        # made on the device: no host copy, so a CUDA graph can capture it
+        bg = torch.stack([torch.full((), c, device=dev)
+                          for c in cfg.background])
         mask = _sh_mask(state.step, cfg.sh_warmup_every, g.sh_rest.shape[1],
                         dev)
         params = {k: getattr(g, k).detach().requires_grad_(True)
                   for k in FLOAT_FIELDS}
+        if cfg.exposure:
+            params["exposure"] = state.exposure.detach().requires_grad_(True)
+        if cfg.bilateral_grid:
+            params["bilagrid"] = state.bilagrid.detach().requires_grad_(True)
         offset = torch.zeros((g.capacity, 2), device=dev, requires_grad=True)
         absp = (torch.zeros((g.capacity, 2), device=dev, requires_grad=True)
                 if absgrad else None)
         # masked coefficients get zero gradient; Adam still moves them
         # by their momentum, as in the JAX package
-        p = g.replace(**{**params, "sh_rest": params["sh_rest"] * mask})
-        out, proj = _render_for_training(p, camera, cfg, offset, impl,
+        p = g.replace(**{**{k: params[k] for k in FLOAT_FIELDS},
+                         "sh_rest": params["sh_rest"] * mask})
+        out, proj = _render_for_training(p, camera, cfg, offset, impl, bg,
                                          abs_probe=absp)
         rgb = out["rgb"]
+        if cfg.exposure:
+            e = select(params["exposure"], frame_idx)          # (3, 4)
+            rgb = maximum(rgb @ e[:, :3].T + e[:, 3], 0.0)
+        if cfg.bilateral_grid:
+            rgb = apply_bilagrid(select(params["bilagrid"], frame_idx), rgb)
         loss = photometric_loss(rgb, target, cfg.ssim_lambda)
+        if cfg.bilateral_grid:
+            loss = loss + cfg.bilagrid_tv_lambda * bilagrid_tv_loss(
+                params["bilagrid"])
         if cfg.depth_lambda > 0.0:
             if target_depth is None:
                 raise ValueError("depth_lambda > 0 needs per-frame target "
@@ -251,30 +277,44 @@ def make_train_step(cfg: TrainConfig, impl: str) -> Callable:
             loss = loss + cfg.scale_reg_lambda * torch.where(
                 g.alive, pen, 0.0).sum() / n_alive
 
-        inputs = [params[k] for k in FLOAT_FIELDS] + [offset]
+        names = list(params)
+        inputs = [params[k] for k in names] + [offset]
         if absgrad:
             inputs.append(absp)
         grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if gr is None else gr
                  for x, gr in zip(inputs, grads)]
-        p_grads = dict(zip(FLOAT_FIELDS, grads))
+        p_grads = dict(zip(names, grads))
         # densification signal: absgrad (per-pixel |grad| sums, no sign
         # cancellation) when enabled, else the signed screen gradient
-        densify_grad = grads[-1] if absgrad else grads[len(FLOAT_FIELDS)]
+        densify_grad = grads[-1] if absgrad else grads[len(names)]
         with torch.no_grad():
             dstate = update_stats(state.densify_state, densify_grad,
                                   proj.radii.detach(), proj.valid,
                                   camera.width, camera.height)
-            new_params, opt_state = optimizer.step(float_params(g), p_grads,
+            current = {**float_params(g),
+                       **{k: getattr(state, k) for k in names
+                          if k not in FLOAT_FIELDS}}
+            new_params, opt_state = optimizer.step(current, p_grads,
                                                    state.opt_state)
             metrics = {"loss": loss.detach(), "psnr": psnr(rgb.detach(), target),
                        "n_alive": g.num_alive, "overflow": out["overflow"]}
-        return TrainState(gaussians=g.replace(**new_params),
-                          opt_state=opt_state, densify_state=dstate,
-                          step=state.step + 1,
-                          generator=state.generator), metrics
+        return TrainState(
+            gaussians=g.replace(**{k: new_params[k] for k in FLOAT_FIELDS}),
+            opt_state=opt_state, densify_state=dstate, step=state.step + 1,
+            generator=state.generator,
+            exposure=new_params.get("exposure", state.exposure),
+            bilagrid=new_params.get("bilagrid", state.bilagrid)), metrics
 
     return train_step
+
+
+def make_fused_train_steps(cfg: TrainConfig, impl: str) -> FusedSteps:
+    """F train steps per call over a FrameStack (step s trains on frame
+    s % n): fused(state, frames, F) -> (state, metrics stacked (F,)).
+    The JAX package's lax.scan; here a loop on the CPU and a CUDA graph
+    of the step on the card (train/graphed.py)."""
+    return FusedSteps(make_train_step(cfg, impl))
 
 
 def make_densify_step(cfg: TrainConfig) -> Callable:
@@ -308,17 +348,31 @@ class Trainer:
         gaussians = gaussians.replace(**{
             f.name: getattr(gaussians, f.name).detach().clone()
             for f in dataclasses.fields(gaussians)})
-        optimizer = make_optimizer(cfg.optim, cfg.scene_extent)
+        params0 = float_params(gaussians)
+        exposure0 = bilagrid0 = None
+        if cfg.exposure:
+            exposure0 = params0["exposure"] = identity_exposure(len(frames),
+                                                                device=dev)
+        if cfg.bilateral_grid:
+            bilagrid0 = params0["bilagrid"] = identity_bilagrid(
+                len(frames), cfg.bilagrid_shape, device=dev)
         self.state = TrainState(
             gaussians=gaussians,
-            opt_state=optimizer.init(float_params(gaussians)),
+            opt_state=_optimizer(cfg).init(params0),
             densify_state=DensifyState.zero(gaussians.capacity, device=dev),
             step=0,
             generator=torch.Generator().manual_seed(0),
+            exposure=exposure0,
+            bilagrid=bilagrid0,
         )
         # cameras moved to the device once, not on every step
         self._cams = [f.camera.to(dev) for f in frames]
         self._train_step = make_train_step(cfg, impl)
+        self._fused_steps_fn = None
+        if cfg.fused_steps > 1 and len(
+                {(f.camera.width, f.camera.height) for f in frames}) == 1:
+            self._fused_steps_fn = make_fused_train_steps(cfg, impl)
+        self._frame_stack = None
         self._densify_step = make_densify_step(cfg)
         self._pool_max = gaussians.capacity
         self.history: List[Dict] = []
@@ -384,11 +438,35 @@ class Trainer:
 
         n = len(self.frames)
         step0 = self.state.step
+        # fused chunks read every frame from device-resident stacks
+        fused = int(cfg.fused_steps or 0)
+        if host or self._fused_steps_fn is None:
+            fused = 0
         if host:
             # one step ahead: the next target's copy overlaps this step
             pending = upload(step0 % n)
+        elif fused > 1:
+            if self._frame_stack is None:   # kept: the graph reads it
+                self._frame_stack = stack_frames(
+                    [f.camera for f in self.frames], targets_np, depths_np,
+                    dev)
+            stack = self._frame_stack
         else:
             targets = [upload(i) for i in range(n)]
+
+        def host_event(s: int) -> bool:
+            """Whether the loop does anything between step s and s + 1
+            (pool resize, densify, opacity reset, checkpoint): a fused
+            chunk may end on such a step, never run past one."""
+            if s <= 0:
+                return False
+            if (s % cfg.densify_interval == 0
+                    and ((cfg.dynamic_pool and s >= cfg.densify_from)
+                         or cfg.densify_from <= s < cfg.densify_until)):
+                return True
+            if s % cfg.opacity_reset_interval == 0:
+                return True
+            return bool(cfg.checkpoint_dir) and s % cfg.checkpoint_every == 0
 
         def log(m, step):
             m["step"] = step
@@ -403,18 +481,39 @@ class Trainer:
                       f"alive={int(m['n_alive'])}{extra} ({m['elapsed']:.1f}s)")
 
         t0 = time.time()
-        for i in range(iters):
+        i = 0
+        while i < iters:
             step = step0 + i
-            idx = step % n
-            if host:
-                target, tdepth = pending
-                pending = upload((step + 1) % n)
+            if (fused > 1 and i + fused <= iters
+                    and not any(host_event(step + j)
+                                for j in range(fused - 1))):
+                # a host event may land on the chunk's last step only
+                # (it runs after the chunk, where the unfused loop runs it)
+                self.state, mstack = self._fused_steps_fn(self.state, stack,
+                                                          fused)
+                log_js = [j for j in range(fused)
+                          if (step + j) % cfg.log_every == 0]
+                if log_js:
+                    mhost = {k: v.cpu().numpy() for k, v in mstack.items()}
+                    for j in log_js:
+                        log({k: float(v[j]) for k, v in mhost.items()},
+                            step + j)
+                i += fused
+                step = step0 + i - 1      # the last step run, for events
             else:
-                target, tdepth = targets[idx]
-            self.state, metrics = self._train_step(
-                self.state, self._cams[idx], target, idx, tdepth)
-            if step % cfg.log_every == 0:
-                log({k: float(v) for k, v in metrics.items()}, step)
+                idx = step % n
+                if host:
+                    target, tdepth = pending
+                    pending = upload((step + 1) % n)
+                elif fused > 1:
+                    target, tdepth = stack.target(idx), stack.depth(idx)
+                else:
+                    target, tdepth = targets[idx]
+                self.state, metrics = self._train_step(
+                    self.state, self._cams[idx], target, idx, tdepth)
+                if step % cfg.log_every == 0:
+                    log({k: float(v) for k, v in metrics.items()}, step)
+                i += 1
 
             if (cfg.dynamic_pool and step > 0
                     and step % cfg.densify_interval == 0
@@ -472,6 +571,8 @@ class Trainer:
             "densify_state": {f.name: getattr(st.densify_state, f.name)
                               for f in dataclasses.fields(st.densify_state)},
             "generator": st.generator.get_state(),
+            "exposure": st.exposure,
+            "bilagrid": st.bilagrid,
         }
         out = os.path.join(path, f"step_{st.step}.pt")
         tmp = f"{out}.{os.getpid()}.tmp"
@@ -497,6 +598,10 @@ class Trainer:
             densify_state=DensifyState(**to_dev(obj["densify_state"])),
             step=int(obj["step"]),
             generator=gen,
+            exposure=None if obj.get("exposure") is None
+            else obj["exposure"].to(dev),
+            bilagrid=None if obj.get("bilagrid") is None
+            else obj["bilagrid"].to(dev),
         )
 
     def resume_latest(self) -> bool:

@@ -8,6 +8,8 @@ fixture, never at import). On a machine with an H100, nvcc and no JAX:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -121,6 +123,38 @@ def test_kernel_matches_plain_on_other_tile_sizes(device, tile_size):
     assert_fwd_agrees(got, composite_fwd_plain(geom, feat, counts, None, **kw))
 
 
+@pytest.mark.parametrize("tile_size,has_dlim", [(32, False), (32, True),
+                                                (12, False), (24, True)])
+def test_bwd_kernel_matches_plain_on_other_tile_sizes(device, tile_size,
+                                                      has_dlim):
+    """32x32 tiles (1024 pixels, four a thread) and ragged ones (144 and
+    576 pixels, partial warps) through the backward's second instance,
+    on the forward kernel's residuals, with and without a depth limit."""
+    g, cam = _scene(device)
+    cfg = RenderConfig(tile_size=tile_size, tile_capacity=1024)
+    with torch.no_grad():
+        geom, feat, counts, _ = bin_and_gather_packed(
+            project(g, cam, cfg), cam.width, cam.height, cfg)
+    tiles_x, _ = num_tiles(cam.width, cam.height, tile_size)
+    P = tile_size * tile_size
+    dlim = None
+    if has_dlim:
+        dlim = (torch.rand((geom.shape[0], P, 1),
+                           generator=torch.Generator().manual_seed(2))
+                * 4.0 + 2.0).to(device)
+    kw = dict(tiles_x=tiles_x, cfg=cfg, has_dlim=has_dlim)
+    out, tfin, nblk, ltg = composite_fwd(geom, feat, counts, dlim, **kw)
+    gout = torch.randn(out.shape, generator=torch.Generator().manual_seed(9))
+    gout = gout.to(device)
+    before = composite_bwd.launches
+    got = composite_bwd(geom, feat, counts, dlim, gout, tfin, nblk, ltg, **kw)
+    torch.cuda.synchronize()
+    assert composite_bwd.launches == before + 1
+    assert_bwd_agrees(got, composite_bwd_plain(geom, feat, counts, dlim, gout,
+                                               tfin, nblk, ltg, **kw))
+    assert float(got[0][:, :6].abs().max()) > 0.0
+
+
 def test_rasterize_on_card_matches_cpu_reference(device):
     g, cam = _scene(device, n=1500, w=64, h=48)
     cfg = RenderConfig(tile_capacity=512)
@@ -231,6 +265,77 @@ def test_train_step_on_card_matches_cpu(device):
     diff = (means_gpu - means_cpu).abs()
     assert float(diff.max()) <= 3.3e-4
     assert float((diff > 1e-6).float().mean()) <= 1e-3
+
+
+def test_graphed_steps_equal_eager_steps(device):
+    """fused_steps on the card (one step captured as a CUDA graph and
+    replayed) against the eager loop on the same frames: 12 steps in
+    chunks of 4 and 2 around a densify round and a pool resize, with the
+    exposure affine and the bilateral grid on. The Gaussians, the
+    affines and every logged loss agree within the JAX fused test's
+    tolerances, and the resized pool was captured anew."""
+    g = Gaussians.random(torch.Generator().manual_seed(0), 600, sh_degree=3,
+                         extent=1.5, capacity=4096, device=device)
+    cams = [Camera.look_at(e, [0, 0, 0], [0, 0, 1], 60.0, 64, 48,
+                           device=device)
+            for e in ([4.0, 0.5, 1.2], [-3.0, 2.5, 1.0], [0.5, -4.0, 1.5])]
+    frames = [Frame(camera=c, image=torch.rand(
+        (48, 64, 3), generator=torch.Generator().manual_seed(i)).numpy())
+        for i, c in enumerate(cams)]
+    cfg = TrainConfig(render=RenderConfig(tile_capacity=512), impl="tiled",
+                      iterations=12, log_every=1, densify_from=4,
+                      densify_until=8, densify_interval=4, pool_bucket=256,
+                      opacity_reset_interval=10_000, exposure=True,
+                      bilateral_grid=True, bilagrid_shape=(4, 4, 3))
+    runs = {}
+    for fused in (0, 4):
+        tr = Trainer(dataclasses.replace(cfg, fused_steps=fused), g, frames)
+        tr.run(progress=False)
+        torch.cuda.synchronize()
+        runs[fused] = tr
+    eager, graphed = runs[0], runs[4]
+    assert graphed._fused_steps_fn is not None
+    assert len(graphed._fused_steps_fn.capture_seconds) >= 2   # resized
+    assert [h["step"] for h in graphed.history] == list(range(12))
+    for h0, h1 in zip(eager.history, graphed.history):
+        assert abs(h1["loss"] - h0["loss"]) <= 1e-5 * abs(h0["loss"]) + 1e-6
+    for k in ("means", "logit_opacities"):
+        a = getattr(graphed.state.gaussians, k).cpu()
+        b = getattr(eager.state.gaussians, k).cpu()
+        assert torch.allclose(a, b, rtol=1e-5, atol=1e-5), k
+    assert torch.allclose(graphed.state.exposure, eager.state.exposure,
+                          rtol=1e-5, atol=1e-6)
+    assert graphed.state.step == eager.state.step == 12
+
+
+def test_batched_composite_launches_the_forward_once(device):
+    """composite_tiled_batch of 3 cameras: one forward launch over 3 x T
+    tiles, each camera's image bit for bit its composite_tiled, and one
+    backward launch for its gradient."""
+    from robosimgs_tpu_torch.render.tiled import (composite_tiled,
+                                                  composite_tiled_batch,
+                                                  stack_projected)
+    g, _ = _scene(device, n=3000)
+    cams = [Camera.look_at(e, [0, 0, 0], [0, 0, 1], 60.0, 96, 64,
+                           device=device)
+            for e in ([4.0, 0.5, 1.2], [-3.0, 2.5, 1.0], [0.5, -4.0, 1.5])]
+    with torch.no_grad():
+        projs = stack_projected([project(g, c, CFG) for c in cams])
+        f0 = composite_fwd.launches
+        out = composite_tiled_batch(projs, 96, 64, CFG)
+        torch.cuda.synchronize()
+        assert composite_fwd.launches == f0 + 1
+        for c, cam in enumerate(cams):
+            one = composite_tiled(project(g, cam, CFG), 96, 64, CFG)
+            assert torch.equal(out["rgb"][c], one["rgb"]), c
+    params = g.means.clone().requires_grad_(True)
+    projs = stack_projected([project(g.replace(means=params), c, CFG)
+                             for c in cams])
+    b0 = composite_bwd.launches
+    composite_tiled_batch(projs, 96, 64, CFG)["rgb"].sum().backward()
+    torch.cuda.synchronize()
+    assert composite_bwd.launches == b0 + 1
+    assert float(params.grad.abs().max()) > 0.0
 
 
 def _box_meshes(device, n=2):

@@ -26,11 +26,12 @@ from robosimgs_tpu_torch.cli import train as cli_train
 from robosimgs_tpu_torch.core.convert import (camera_from_numpy,
                                               opt_state_from_numpy,
                                               to_numpy, train_state_from_numpy)
+from robosimgs_tpu_torch.core.camera import Camera
 from robosimgs_tpu_torch.core.types import Gaussians
 from robosimgs_tpu_torch.render.config import RenderConfig
 from robosimgs_tpu_torch.render.rasterize import rasterize
 from robosimgs_tpu_torch.train import trainer as tt
-from robosimgs_tpu_torch.train.data import synthetic_scene
+from robosimgs_tpu_torch.train.data import Frame, synthetic_scene
 
 RKW = dict(tile_capacity=128, max_tiles_per_gaussian=16, ref_gaussian_chunk=64)
 
@@ -199,12 +200,21 @@ def test_checkpoint_and_resume(tmp_path):
 
 
 def test_unported_options_raise():
+    """The options that raised before they were ported (exposure, the
+    bilateral grid, fused_steps) now build a Trainer with their state;
+    the reference impl still refuses absgrad."""
     g = Gaussians.random(torch.Generator().manual_seed(0), 4, sh_degree=0,
                          device="cpu")
-    for kw in (dict(exposure=True), dict(bilateral_grid=True),
-               dict(fused_steps=4)):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tt.Trainer(tt.TrainConfig(**kw), g, [])
+    frames = [Frame(camera=Camera.look_at([4, 0, 0], [0, 0, 0], [0, 0, 1],
+                                          60.0, 8, 8, device="cpu"))] * 2
+    tr = tt.Trainer(tt.TrainConfig(exposure=True), g, frames)
+    assert tr.state.exposure.shape == (2, 3, 4) and "exposure" in \
+        tr.state.opt_state
+    tr = tt.Trainer(tt.TrainConfig(bilateral_grid=True), g, frames)
+    assert tr.state.bilagrid.shape == (2, 8, 8, 4, 12) and "bilagrid" in \
+        tr.state.opt_state
+    assert tt.Trainer(tt.TrainConfig(fused_steps=4), g,
+                      frames)._fused_steps_fn is not None
     with pytest.raises(ValueError, match="absgrad"):
         tt.make_train_step(tt.TrainConfig(render=RenderConfig(absgrad=True)),
                            "reference")
@@ -221,9 +231,11 @@ def test_cli_train_and_render_cpu(tmp_path):
     assert np.isfinite(summary["psnr"]) and summary["n_alive"] == 40
     assert summary["history"][0]["step"] == 0
     assert (out / "scene.ply").is_file()
-    with pytest.raises(SystemExit, match="not ported"):
-        cli_train.main(["--synthetic", "4", "--exposure", "--output",
-                        str(out), "--device", "cpu"])
+    # --exposure and --bilateral-grid reach TrainConfig
+    # (test_torch_train_extras.py trains with both)
+    args = cli_train.build_parser().parse_args(
+        ["--output", str(out), "--exposure", "--bilateral-grid"])
+    assert args.exposure and args.bilateral_grid
 
     # render the trained scene from a transforms.json's cameras
     c2w = np.eye(4)
