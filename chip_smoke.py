@@ -129,6 +129,23 @@ Phases, each of which raises on a fault (nothing is caught):
                both kernels against their plain versions and the
                backward's time and bound, Trainer steps there, and a
                small scene's gradients on the card against the CPU
+ 12. multi-device — parallel/ at world size 1 over NCCL in this process
+               (mesh (1, 1), the bench workload): the DP step and the
+               gaussian-sharded step (all_gather, ring) against
+               make_train_step (loss and gradients within 1e-6 of the
+               largest), one launch of each kernel a step, ms / host wall
+               / kernels a step; render_rollout(camera_mesh=) on the
+               rollout workload (2 steps) bit-equal to the unsharded
+               frames; cli.render_rollout --shard-cameras on one rank
+               (its own NCCL group) writing the unsharded CLI's PNGs;
+               then two ranks over gloo on the one card
+               (tools/dist_run.py): the DP step over 2 cameras against
+               world 1, the ring over 2 shards of 50k at a lossless
+               single-tier K (counts bit-equal to the whole set's binning,
+               nothing truncated or overflowed; both kernels against their
+               plain versions on the merged blocks), the ring step against
+               the all_gather step, the camera-sharded rollout bit-equal,
+               the bytes staged through the host. No scaling is measured
 The line before the last lists the kernels; the last line is the result.
 Exits non-zero without a CUDA device.
 """
@@ -935,6 +952,8 @@ def main() -> int:
     segment(dev, smi)
     # 11. training's leftovers and the batched composite
     left = leftovers(dev, smi)
+    # 12. the multi-device paths: world 1 over NCCL, two ranks over gloo
+    multi = multidevice(dev, smi)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
@@ -944,7 +963,7 @@ def main() -> int:
         "launches": launches_train[0], "max_abs_err": max(
             err_a, err_b, err_cli, err_skip, roll["max_abs_err"],
             pol["max_abs_err"], left["batch_max_abs_err"],
-            left["tile32_fwd_max_abs_err"]),
+            left["tile32_fwd_max_abs_err"], multi["fwd_max_abs_err"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "rollout_launches": roll["launches"], "rollout_ms": roll["ms"],
@@ -961,12 +980,15 @@ def main() -> int:
         "batch_bound_ms": left["batch_bound_ms"],
         "batch_max_abs_err": left["batch_max_abs_err"],
         "graph_launches_per_step":
-            left["graph_launches_per_step"]["composite_fwd"]}, {
+            left["graph_launches_per_step"]["composite_fwd"],
+        "sharded_launches": multi["launches"][0],
+        "sharded_max_abs_err": multi["fwd_max_abs_err"]}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "robosimgs_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "robosimgs_tpu/render/pallas_kernels.py:221",
         "launches": launches_train[1], "max_abs_err": max(
-            err_bwd, err_32, left["tile32_max_abs_err"]),
+            err_bwd, err_32, left["tile32_max_abs_err"],
+            multi["bwd_max_abs_err"]),
         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by, "library_ms": None,
         "tile32_K": left["tile32_K"], "tile32_ms": left["tile32_ms"],
@@ -975,10 +997,361 @@ def main() -> int:
         "tile32_bound_ms": left["tile32_bound_ms"],
         "tile32_bound_by": left["tile32_bound_by"],
         "graph_launches_per_step":
-            left["graph_launches_per_step"]["composite_bwd"]}]}))
+            left["graph_launches_per_step"]["composite_bwd"],
+        "sharded_launches": multi["launches"][1],
+        "sharded_max_abs_err": multi["bwd_max_abs_err"]}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0
+
+
+def multidevice(dev, smi: str) -> dict:
+    """Phase 12: the multi-device paths (parallel/) on the one card.
+    (a) world size 1 over NCCL in this process, mesh (1, 1), the bench
+    workload: the DP step, the gaussian-sharded step with the all_gather
+    and with the ring, each against make_train_step on the same camera
+    (loss and gradients within 1e-6 of the largest; the gradients read
+    from Adam's first moments, (1 - b1) g after one step from zero), its
+    ms (CUDA events), host wall and kernels a step (profiler: one
+    composite_fwd and one composite_bwd); render_rollout(camera_mesh=)
+    on the rollout workload (2 steps) bit-equal to the unsharded frames;
+    cli.render_rollout --shard-cameras without a launcher writing the
+    unsharded CLI's PNGs. (b) two ranks over gloo sharing the card (tools/dist_run.py): the DP
+    step over 2 cameras against (a)'s world-1 DP step on them; the ring
+    over 2 shards of 50k Gaussians at a lossless single-tier capacity,
+    its merged blocks' counts bit-equal to binning the whole set, both
+    kernels against their plain versions on those blocks, the ring step
+    against the all_gather step; the camera-sharded rollout (2 cameras
+    a rank) bit-equal to (a)'s frames; the bytes comm.py staged through
+    the host. Every check raises. Returns the kernels line's numbers."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+    from torch.profiler import ProfilerActivity, profile
+
+    from robosimgs_tpu_torch import Camera
+    from robosimgs_tpu_torch.cli import render_rollout as cli_rollout
+    from robosimgs_tpu_torch.core.convert import shard_train_state
+    from robosimgs_tpu_torch.parallel.distributed import (
+        make_dp_train_step, make_gaussian_sharded_train_step, stack_cameras)
+    from robosimgs_tpu_torch.parallel.mesh import make_mesh
+    from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
+    from robosimgs_tpu_torch.render.kernels import (composite_bwd,
+                                                    composite_bwd_plain,
+                                                    composite_fwd,
+                                                    composite_fwd_plain)
+    from robosimgs_tpu_torch.render.project import project
+    from robosimgs_tpu_torch.render.tiles import num_tiles
+    from robosimgs_tpu_torch.scenegen.rollout import (ArticulatedObject,
+                                                      render_rollout)
+    from robosimgs_tpu_torch.scenegen.trajectory import load_trajectory
+    from robosimgs_tpu_torch.tools import dist_run
+    from robosimgs_tpu_torch.tools.workloads import (ROLLOUT_MESH,
+                                                     bench_scene,
+                                                     rollout_scene, time_ms,
+                                                     write_rollout_inputs,
+                                                     write_rollout_object)
+    from robosimgs_tpu_torch.train.densify import DensifyState
+    from robosimgs_tpu_torch.train.io_ply import save_ply
+    from robosimgs_tpu_torch.train.optim import (FLOAT_FIELDS, float_params,
+                                                 make_optimizer)
+    from robosimgs_tpu_torch.train.trainer import (TrainConfig, TrainState,
+                                                   make_train_step)
+    from robosimgs_tpu_torch.utils.imresize import read_png_rgb
+
+    t12 = time.perf_counter()
+    g, cam, cfg = bench_scene(dev)
+    res = cam.width
+    cfg_train = TrainConfig(render=cfg, impl="tiled", sh_warmup_every=1)
+    optimizer = make_optimizer(cfg_train.optim, cfg_train.scene_extent)
+
+    def fresh(gg):
+        return TrainState(gaussians=gg,
+                          opt_state=optimizer.init(float_params(gg)),
+                          densify_state=DensifyState.zero(gg.capacity,
+                                                          device=gg.device),
+                          step=0, generator=torch.Generator().manual_seed(0))
+
+    def grad_err(got, want):
+        """(max |got - want| over every gradient entry, over the largest
+        |want| entry; the worst field). Fields such as the quaternions'
+        sit at f32 noise on this scene, where a per-field ratio measures
+        the summation order."""
+        def cpu(x):
+            return (x if torch.is_tensor(x) else torch.from_numpy(x)).cpu()
+
+        d = {k: float((cpu(got[k]) - cpu(want[k])).abs().max())
+             for k in FLOAT_FIELDS}
+        top = max(float(cpu(want[k]).abs().max()) for k in FLOAT_FIELDS)
+        worst = max(d, key=d.get)
+        return d[worst] / top, worst
+
+    state0 = fresh(g)
+    tgt = torch.zeros((res, res, 3), device=dev)
+    tmp_dir = tempfile.TemporaryDirectory()
+    tmp = tmp_dir.name
+    dist.init_process_group(
+        "nccl", init_method=f"tcp://127.0.0.1:{dist_run.free_port()}",
+        world_size=1, rank=0)
+    try:
+        # 12a. world size 1 over NCCL, mesh (1, 1)
+        mesh = make_mesh(1, 1)
+        ref_state, ref_m = make_train_step(cfg_train, "tiled")(state0, cam,
+                                                               tgt)
+        dp = make_dp_train_step(cfg_train, mesh, impl="tiled")
+        gs_ag = make_gaussian_sharded_train_step(cfg_train, mesh,
+                                                 impl="tiled")
+        gs_ring = make_gaussian_sharded_train_step(cfg_train, mesh,
+                                                   impl="tiled",
+                                                   gather="ring")
+        cam_b = stack_cameras([cam])
+        steps = {"dp": lambda: dp(state0, cam_b, tgt[None]),
+                 "all_gather": lambda: gs_ag(state0, cam, tgt),
+                 "ring": lambda: gs_ring(state0, cam, tgt)}
+        sharded_launches = [0, 0]
+        out = {}
+        log(f"[12 multi-device] (a) world 1 over NCCL, mesh (1, 1), bench "
+            f"workload ({g.capacity} Gaussians, {res}x{res}, K="
+            f"{cfg.tile_capacity}); make_train_step loss "
+            f"{float(ref_m['loss']):.8f}")
+        for name, fn in steps.items():
+            composite_fwd.launches = composite_bwd.launches = 0
+            new, m = fn()
+            torch.cuda.synchronize()
+            launches = (composite_fwd.launches, composite_bwd.launches)
+            sharded_launches[0] += launches[0]
+            sharded_launches[1] += launches[1]
+            loss_err = abs(float(m["loss"]) - float(ref_m["loss"])) \
+                / abs(float(ref_m["loss"]))
+            g_err, g_worst = grad_err(
+                {k: new.opt_state[k].mu for k in FLOAT_FIELDS},
+                {k: ref_state.opt_state[k].mu for k in FLOAT_FIELDS})
+            acc, ref_acc = (s.densify_state.grad_accum
+                            for s in (new, ref_state))
+            stat_err = float((acc - ref_acc).abs().max()) \
+                / float(ref_acc.abs().max())
+            ms = time_ms(fn, reps=10)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(10):
+                fn()
+            torch.cuda.synchronize()
+            wall = (time.perf_counter() - t0) * 1e3 / 10
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                for _ in range(3):
+                    fn()
+                torch.cuda.synchronize()
+            kc = kernel_counts(prof, 3)
+            log(f"  {name} step: loss {float(m['loss']):.8f}, |loss - "
+                f"make_train_step's| / loss {loss_err:.3e}, gradients "
+                f"max|d| / max {g_err:.3e} (worst {g_worst}), densify "
+                f"grad_accum "
+                f"{stat_err:.3e}; launches {launches}; {ms:.4f} ms (CUDA "
+                f"events), host wall {wall:.4f} ms; kernels a step "
+                f"(profiler) composite_fwd {kc['composite_fwd']:.2f} "
+                f"composite_bwd {kc['composite_bwd']:.2f} ({smi})")
+            if loss_err > 1e-6 or g_err > 1e-6 or stat_err > 1e-6:
+                raise AssertionError(f"the {name} step differs from "
+                                     "make_train_step at world 1")
+            if launches != (1, 1) or kc != {"composite_fwd": 1.0,
+                                            "composite_bwd": 1.0}:
+                raise AssertionError(f"the {name} step launched {launches}, "
+                                     f"profiled {kc}")
+            out[name] = dict(ms=ms, wall_ms=wall, loss_err=loss_err,
+                             grad_err=g_err)
+
+        # the rollout workload, camera-sharded over the (1, 1) mesh
+        rg, rcams, rcfg = rollout_scene(dev)
+        urdf = write_rollout_object(tmp)
+        obj = ArticulatedObject.from_urdf(urdf)
+        traj_path, cams_path = write_rollout_inputs(tmp, obj.model, steps=2)
+        traj, poses = load_trajectory(traj_path, [obj.model])
+        rkw = dict(cfg=rcfg, mesh_cfg=ROLLOUT_MESH, base_poses=poses)
+        composite_fwd.launches = composite_bwd.launches = 0
+        t0 = time.perf_counter()
+        frames = render_rollout(rg, [obj], traj, rcams, camera_mesh=mesh,
+                                **rkw)
+        torch.cuda.synchronize()
+        roll_s = time.perf_counter() - t0
+        roll_launches = (composite_fwd.launches, composite_bwd.launches)
+        sharded_launches[0] += roll_launches[0]
+        plain_frames = render_rollout(rg, [obj], traj, rcams, **rkw)
+        log(f"  render_rollout(camera_mesh=(1, 1)): 2 steps x {len(rcams)} "
+            f"cameras {rcams[0].width}x{rcams[0].height} in {roll_s:.2f} s, "
+            f"launches {roll_launches}; bit-equal to the unsharded frames: "
+            f"{np.array_equal(frames, plain_frames)}")
+        if not np.array_equal(frames, plain_frames) \
+                or roll_launches != (2 * len(rcams), 0):
+            raise AssertionError("the camera-sharded rollout differs")
+
+        # the world-1 DP step over the two cameras (b) shards
+        cam2 = Camera.look_at([-3.0, 2.5, 1.0], [0, 0, 0], [0, 0, 1], 60.0,
+                              res, res, device=dev)
+        dp_g = make_dp_train_step(cfg_train, mesh, impl="tiled",
+                                  return_grads=True)
+        _, dp1 = dp_g(state0, stack_cameras([cam, cam2]),
+                      torch.zeros((2, res, res, 3), device=dev))
+        # the ring's lossless single-tier capacity: a chunk sizes its own
+        # spill tier, so the two-tier split is off; K holds the whole
+        # set's fullest tile
+        with torch.no_grad():
+            *_, st = bin_and_gather_packed(project(g, cam, cfg), res, res,
+                                           cfg)
+            k_lossless = -(-int(st.max_tile_count) // 128) * 128
+            cfg_ring = dataclasses.replace(cfg, tile_capacity=k_lossless,
+                                           two_tier_split=0)
+            geom_w, feat_w, counts_w, st_w = bin_and_gather_packed(
+                project(g, cam, cfg_ring), res, res, cfg_ring)
+        if int(st_w.truncated_gaussians) or int(st_w.overflowed_tiles):
+            raise AssertionError("the whole set's binning at K="
+                                 f"{k_lossless} is not lossless")
+    finally:
+        dist.destroy_process_group()
+
+    # the rollout CLI with --shard-cameras and no launcher (one rank: it
+    # makes its own NCCL group) writes the unsharded CLI's PNGs
+    scene = os.path.join(tmp, "scene.ply")
+    save_ply(scene, rg)
+    argv = ["--scene", scene, "--urdf", urdf, "--trajectory", traj_path,
+            "--cameras", cams_path, "--output"]
+    t0 = time.perf_counter()
+    printed = io.StringIO()
+    with contextlib.redirect_stdout(printed):
+        cli_rollout.main(argv + [os.path.join(tmp, "shard"),
+                                 "--shard-cameras"])
+        cli_s = time.perf_counter() - t0
+        cli_rollout.main(argv + [os.path.join(tmp, "plain")])
+    names = sorted(os.listdir(os.path.join(tmp, "plain")))
+    same = names == sorted(os.listdir(os.path.join(tmp, "shard"))) and all(
+        np.array_equal(read_png_rgb(os.path.join(tmp, "shard", f)),
+                       read_png_rgb(os.path.join(tmp, "plain", f)))
+        for f in names)
+    log(f"  cli.render_rollout --shard-cameras (no launcher): "
+        f"{printed.getvalue().splitlines()[0]}; {len(names)} PNGs in "
+        f"{cli_s:.2f} s, equal to the unsharded CLI's: {same}")
+    if not same or len(names) != 2 * len(rcams):
+        raise AssertionError("cli.render_rollout --shard-cameras differs")
+
+    # 12b. two ranks over gloo on the one card
+    t_b = time.perf_counter()
+    cpu = torch.device("cpu")
+    state_cpu = fresh(g.to(cpu))
+    half = g.capacity // 2
+    g_cpu = g.to(cpu)
+    g_shards = [g_cpu.replace(**{f.name: getattr(g_cpu, f.name)[
+        r * half:(r + 1) * half] for f in dataclasses.fields(g_cpu)})
+        for r in range(2)]
+    cfg_train_ring = dataclasses.replace(cfg_train, render=cfg_ring)
+    shards = [shard_train_state(state_cpu, 2, r) for r in range(2)]
+    cases = [
+        ("dp", dist_run.dp_step, dict(
+            mesh_shape=(2, 1), cfg=cfg_train, impl="tiled", state=state_cpu,
+            cams=[cam.to(cpu), cam2.to(cpu)],
+            targets=np.zeros((2, res, res, 3), np.float32))),
+        ("blocks", dist_run.ring, dict(
+            mesh_shape=(2, 1), cfg=cfg_ring, shards=g_shards,
+            camera=cam.to(cpu), background=np.zeros(3, np.float32)))]
+    for gather in ("all_gather", "ring"):
+        cases.append((gather, dist_run.gs_step, dict(
+            mesh_shape=(2, 1), cfg=cfg_train_ring, impl="tiled",
+            gather=gather, shards=shards, camera=cam.to(cpu),
+            target=np.zeros((res, res, 3), np.float32))))
+    cases += [
+        ("rollout", dist_run.rollout, dict(
+            mesh_shape=(2, 1), background=rg.to(cpu), urdfs=[urdf],
+            trajectory=traj, cameras=[c.to(cpu) for c in rcams], cfg=rcfg,
+            mesh_cfg=ROLLOUT_MESH, base_poses=poses)),
+        ("comm", dist_run.comm_totals, {})]
+    try:
+        ranks = dist_run.run_ranks(dist_run.run_cases, 2, backend="gloo",
+                                   device="cuda", args=(cases,))
+    finally:
+        tmp_dir.cleanup()
+    b_s = time.perf_counter() - t_b
+    for r, rk in enumerate(ranks):
+        d = rk["dp"]
+        loss_err = abs(float(d["loss"]) - float(dp1["loss"])) \
+            / abs(float(dp1["loss"]))
+        g_err, g_worst = grad_err(d["grads"], dp1["grads"])
+        log(f"  (b) rank {r}, gloo on {torch.cuda.get_device_name(0)}: DP "
+            f"over 2 cameras (one a rank) against world 1: loss "
+            f"{float(d['loss']):.8f} (rel {loss_err:.3e}), gradients "
+            f"max|d| / max {g_err:.3e} (worst {g_worst}), launches "
+            f"{tuple(d['launches'])}")
+        if loss_err > 1e-5 or g_err > 2e-6 \
+                or tuple(d["launches"]) != (1, 1):
+            raise AssertionError("the 2-rank DP step differs from world 1")
+        a, b = rk["all_gather"], rk["ring"]
+        loss_err = abs(float(b["loss"]) - float(a["loss"])) \
+            / abs(float(a["loss"]))
+        g_err, g_worst = grad_err(b["grads"], a["grads"])
+        log(f"  rank {r}: ring step against all_gather step (2 shards of "
+            f"{half}, K={k_lossless}): loss {float(b['loss']):.8f} (rel "
+            f"{loss_err:.3e}), gradients max|d| / max {g_err:.3e} (worst "
+            f"{g_worst}); "
+            f"launches {tuple(b['launches'])} / {tuple(a['launches'])}; "
+            f"comm ring {b['comm_calls']}, all_gather {a['comm_calls']}")
+        if loss_err > 1e-5 or g_err > 2e-6 \
+                or tuple(b["launches"]) != (1, 1) \
+                or tuple(a["launches"]) != (1, 1) \
+                or b["comm_calls"].get("all_gather") != 1:
+            raise AssertionError("the ring step differs from all_gather")
+        if not np.array_equal(rk["rollout"]["frames"], frames):
+            raise AssertionError(f"rank {r}'s camera-sharded rollout differs "
+                                 "from world 1's")
+        for key in ("dp", "blocks", "all_gather", "ring", "rollout"):
+            sharded_launches[0] += rk[key]["launches"][0]
+            sharded_launches[1] += rk[key]["launches"][1]
+    log(f"  camera-sharded rollout, 2 cameras a rank: bit-equal to (a) on "
+        f"both ranks; staged through the host by comm.py: "
+        + ", ".join(f"rank {r} {rk['comm']['staged_bytes']} B"
+                    for r, rk in enumerate(ranks))
+        + f"; (b) {b_s:.1f} s. Both ranks share one card over gloo: this "
+        f"measures no scaling")
+
+    # the ring's merged blocks: counts against the whole set, then both
+    # kernels against their plain versions on them
+    rb = ranks[0]["blocks"]
+    geom_r, feat_r = (torch.from_numpy(rb[k]).to(dev) for k in ("geom",
+                                                                "feat"))
+    counts_r = torch.from_numpy(rb["counts"]).to(dev)
+    stats = {k: int(v) for k, v in rb["stats"].items()}
+    equal = bool(torch.equal(counts_r, counts_w))
+    kmask = (torch.arange(k_lossless, device=dev)[None, None, :]
+             < counts_w[:, None, None])
+    blk_err = max(float(torch.where(kmask, a - b, 0.0).abs().max())
+                  for a, b in ((geom_r, geom_w), (feat_r, feat_w)))
+    log(f"  ring merged blocks (T={geom_r.shape[0]}, K={k_lossless}): counts "
+        f"bit-equal to the whole set's: {equal}; truncated "
+        f"{stats['truncated_gaussians']}, overflowed tiles "
+        f"{stats['overflowed_tiles']}; valid slots max|d| {blk_err:.3e}")
+    if not equal or stats["truncated_gaussians"] \
+            or stats["overflowed_tiles"] or blk_err > 1e-5:
+        raise AssertionError("the ring's merged blocks differ from the "
+                             "whole set's binning")
+    tiles_x, _ = num_tiles(res, res, cfg.tile_size)
+    kw = dict(tiles_x=tiles_x, cfg=cfg_ring, has_dlim=False)
+    fwd = composite_fwd(geom_r, feat_r, counts_r, None, **kw)
+    torch.cuda.synchronize()
+    err_f, _ = compare_fwd(fwd, composite_fwd_plain(geom_r, feat_r, counts_r,
+                                                    None, **kw),
+                           "fwd on the ring's blocks",
+                           (geom_r, counts_r, None, kw))
+    gout = torch.randn(fwd[0].shape, generator=torch.Generator()
+                       .manual_seed(12)).to(dev)
+    bwd = composite_bwd(geom_r, feat_r, counts_r, None, gout, *fwd[1:], **kw)
+    torch.cuda.synchronize()
+    err_b = compare_bwd(bwd, composite_bwd_plain(
+        geom_r, feat_r, counts_r, None, gout, *fwd[1:], **kw),
+        "bwd on the ring's blocks")
+    log(f"  sharded launches: composite_fwd {sharded_launches[0]}, "
+        f"composite_bwd {sharded_launches[1]}; phase 12 "
+        f"{time.perf_counter() - t12:.1f} s")
+    return {"launches": sharded_launches, "fwd_max_abs_err": err_f,
+            "bwd_max_abs_err": err_b, "steps": out}
 
 
 def rollout(dev, smi: str) -> dict:

@@ -12,6 +12,15 @@ triangles are reported on stderr.
 
     python -m robosimgs_tpu_torch.cli.render_rollout --scene scene.ply \\
         --urdf object.urdf --steps 16 --n-cameras 4 --autotune --output frames
+
+--shard-cameras shards the cameras over the ranks torchrun starts (its
+environment: RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR/PORT; one rank
+without a launcher), NCCL on CUDA devices (rank r on card LOCAL_RANK)
+and gloo on the CPU; the largest rank count that divides the cameras
+renders, the other ranks wait, and rank 0 writes the frames:
+
+    torchrun --nproc-per-node=4 -m robosimgs_tpu_torch.cli.render_rollout \\
+        --scene scene.ply --urdf object.urdf --shard-cameras --output frames
 """
 
 from __future__ import annotations
@@ -41,7 +50,7 @@ def build_parser():
     p.add_argument("--output", required=True, help="output dir (png frames)")
     p.add_argument("--impl", default="auto")
     p.add_argument("--shard-cameras", action="store_true",
-                   help="shard cameras over devices (not ported yet)")
+                   help="shard the cameras over torchrun's ranks")
     p.add_argument("--autotune", action="store_true",
                    help="measure the scene and the posed meshes against "
                         "the rollout cameras and render with lossless-fit "
@@ -57,11 +66,45 @@ def build_parser():
     return p
 
 
+def _join_ranks(device: str):
+    """(rank, world, device of this rank, whether this call made the
+    process group) from torchrun's environment."""
+    import torch
+    import torch.distributed as dist
+    rank = int(os.environ.get("RANK", "0"))
+    world = int(os.environ.get("WORLD_SIZE", "1"))
+    cuda = torch.device(device).type == "cuda"
+    if cuda:
+        torch.cuda.set_device(int(os.environ.get("LOCAL_RANK", rank))
+                              % torch.cuda.device_count())
+        device = f"cuda:{torch.cuda.current_device()}"
+    if dist.is_initialized():
+        return dist.get_rank(), dist.get_world_size(), device, False
+    backend = "nccl" if cuda else "gloo"
+    if world > 1:
+        dist.init_process_group(backend, init_method="env://")
+    else:
+        dist.init_process_group(backend, store=dist.HashStore(), rank=0,
+                                world_size=1)
+    return rank, world, device, True
+
+
 def main(argv=None):
     args = build_parser().parse_args(argv)
-    if args.shard_cameras:
-        raise SystemExit("--shard-cameras is not ported yet (ROADMAP queue 1 "
-                         "item 5, multi-device)")
+    if not args.shard_cameras:
+        _run(args, 0, 1)
+        return
+    import torch.distributed as dist
+    rank, world, args.device, made_group = _join_ranks(args.device)
+    try:
+        _run(args, rank, world)
+        dist.barrier()        # ranks outside the camera mesh wait here
+    finally:
+        if made_group:
+            dist.destroy_process_group()
+
+
+def _run(args, rank: int, world: int):
     import numpy as np
 
     from robosimgs_tpu_torch.cli.render import write_png
@@ -115,6 +158,19 @@ def main(argv=None):
     else:
         traj = np.zeros((args.steps, 0), np.float32)
 
+    camera_mesh = None
+    if args.shard_cameras:
+        from robosimgs_tpu_torch.parallel.mesh import make_mesh
+        n_data = min(world, len(cams))
+        while len(cams) % n_data:
+            n_data -= 1             # the camera count must tile the axis
+        camera_mesh = make_mesh(n_data, 1,
+                                device_type=args.device.split(":")[0])
+        if rank == 0:
+            print(f"sharding {len(cams)} cameras over {n_data} devices")
+        if camera_mesh.get_coordinate() is None:
+            return                  # this rank waits in main's barrier
+
     kw = {}
     mesh_cfg = MeshRasterConfig()
     demand = None
@@ -138,8 +194,10 @@ def main(argv=None):
             demand["overflowed_tiles"] = 0
             line += (f" mesh_K={mesh_cfg.tile_capacity} (max triangles a "
                      f"tile {demand['max_tile_count']})")
-        print(line)
-    if demand and (demand["overflowed_tiles"] or demand["truncated_triangles"]):
+        if rank == 0:
+            print(line)
+    if rank == 0 and demand and (demand["overflowed_tiles"]
+                                 or demand["truncated_triangles"]):
         print(f"render_rollout: mesh binning at tile capacity "
               f"{mesh_cfg.tile_capacity} drops triangles: "
               f"{demand['overflowed_tiles']} overflowed tiles (up to "
@@ -150,7 +208,9 @@ def main(argv=None):
 
     frames = render_rollout(background, objects, traj, cams, impl=args.impl,
                             base_poses=base_poses, as_uint8=True,
-                            mesh_cfg=mesh_cfg, **kw)
+                            mesh_cfg=mesh_cfg, camera_mesh=camera_mesh, **kw)
+    if rank:
+        return
     os.makedirs(args.output, exist_ok=True)
     T, C = frames.shape[:2]
     for t in range(T):

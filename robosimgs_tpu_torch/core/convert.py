@@ -105,6 +105,64 @@ def train_state_from_numpy(d, device, generator=None) -> TrainState:
         exposure=optional("exposure"), bilagrid=optional("bilagrid"))
 
 
+def _map_leading(state: TrainState, n: int, fn) -> TrainState:
+    """fn applied to every tensor of the state whose leading dim is n
+    (the JAX package's _leading_dim_specs rule: parameters, Adam moments,
+    densify statistics; and a per-frame tensor whose frame count is n)."""
+    def f(x):
+        if isinstance(x, torch.Tensor) and x.dim() >= 1 and x.shape[0] == n:
+            return fn(x)
+        return x
+
+    return dataclasses.replace(
+        state,
+        gaussians=state.gaussians.replace(**{
+            fl.name: f(getattr(state.gaussians, fl.name))
+            for fl in dataclasses.fields(state.gaussians)}),
+        opt_state={k: dataclasses.replace(s, mu=f(s.mu), nu=f(s.nu))
+                   for k, s in state.opt_state.items()},
+        densify_state=state.densify_state.map(f),
+        exposure=None if state.exposure is None else f(state.exposure),
+        bilagrid=None if state.bilagrid is None else f(state.bilagrid))
+
+
+def shard_train_state(state: TrainState, n_shard: int,
+                      data_rank: int) -> TrainState:
+    """Shard `data_rank` of n_shard of a whole state: slots
+    [r cap/n, (r+1) cap/n) of every capacity-leading tensor, the rest
+    whole — the state a rank of the port's gaussian-sharded step
+    holds."""
+    cap = state.gaussians.capacity
+    if cap % n_shard:
+        raise ValueError(f"capacity {cap} does not split into {n_shard}")
+    local = cap // n_shard
+    sl = slice(data_rank * local, (data_rank + 1) * local)
+    return _map_leading(state, cap, lambda x: x[sl].clone())
+
+
+def shard_train_state_from_numpy(d, n_shard: int, data_rank: int, device,
+                                 generator=None) -> TrainState:
+    """shard_train_state of a JAX TrainState's numpy tree (as
+    train_state_from_numpy takes it)."""
+    return shard_train_state(train_state_from_numpy(d, device, generator),
+                             n_shard, data_rank)
+
+
+def gather_train_state(state: TrainState, mesh) -> TrainState:
+    """The whole state from every shard's (the inverse of the sharding):
+    each capacity-leading tensor all-gathered over 'data' in shard order.
+    Every rank of the mesh calls it."""
+    from robosimgs_tpu_torch.parallel import comm
+    group = mesh.get_group("data")
+
+    def gather(x):
+        if x.dtype == torch.bool:
+            return comm.all_gather(x.to(torch.uint8), group).to(torch.bool)
+        return comm.all_gather(x, group)
+
+    return _map_leading(state, state.gaussians.capacity, gather)
+
+
 def _dense(tree, prefix) -> dict:
     """A flax Dense (kernel (in, out), bias) as nn.Linear's (out, in)."""
     return {f"{prefix}.weight": torch.from_numpy(np.array(tree["kernel"]).T),

@@ -9,8 +9,9 @@ camera) composites its splats through the compositing kernel once.
 The background crosses over from the JAX package with
 core/convert.gaussians_from_numpy; URDFs, meshes and trajectories are
 files and numpy arrays on both sides. The JAX package's jit caches have
-no counterpart in eager torch, and its camera sharding over devices is
-not ported yet (ROADMAP queue 1 item 5).
+no counterpart in eager torch. Camera sharding (camera_mesh) renders
+each data rank's share of the cameras against the replicated scene and
+gathers the frames once, at the end (parallel/).
 """
 
 from __future__ import annotations
@@ -126,14 +127,27 @@ def render_rollout(
     timestep (NaN entries: the object's resting pose). as_uint8
     quantizes on the device; the frames cross to the host once, at the
     end. batch_cameras is accepted and renders the same frames (in eager
-    torch every camera is its own call either way). camera_mesh (camera
-    sharding over devices) is not ported yet.
+    torch every camera is its own call either way).
+
+    camera_mesh: a ("data", "tile") DeviceMesh (parallel/mesh.py) that
+    every rank of it passes, with the same arguments: data rank d renders
+    cameras [d C/n_data, (d+1) C/n_data) against the replicated scene
+    (nothing is shared while rendering; a 'tile' axis replicates), and
+    the frames are all-gathered over 'data' once, so every rank returns
+    the whole (T, C, H, W, 3). len(cameras) must divide by the 'data'
+    size, and the cameras share one resolution.
     """
-    if camera_mesh is not None:
-        raise NotImplementedError(
-            "render_rollout(camera_mesh=...): camera sharding over devices "
-            "is not ported yet (ROADMAP queue 1 item 5, multi-device)")
     dev = background.device
+    if camera_mesh is not None:
+        from robosimgs_tpu_torch.parallel.mesh import axis_size
+        n_data = axis_size(camera_mesh, "data")
+        if len(cameras) % n_data or len({(c.width, c.height)
+                                         for c in cameras}) != 1:
+            raise ValueError(f"{len(cameras)} cameras of one resolution "
+                             f"are needed to shard over {n_data} ranks")
+        local = len(cameras) // n_data
+        d = camera_mesh.get_local_rank("data")
+        cameras = cameras[d * local:(d + 1) * local]
     bg_color = (torch.zeros((3,), device=dev) if background_color is None
                 else torch.as_tensor(background_color, dtype=torch.float32,
                                      device=dev))
@@ -146,7 +160,12 @@ def render_rollout(
                                  background=bg_color, impl=impl)["rgb"]
                 for cam in cameras])
             frames.append(_quantize_u8(frame) if as_uint8 else frame)
-        return torch.stack(frames).cpu().numpy()
+        frames = torch.stack(frames)
+        if camera_mesh is not None:
+            from robosimgs_tpu_torch.parallel import comm
+            frames = comm.all_gather(frames, camera_mesh.get_group("data"),
+                                     dim=1)
+        return frames.cpu().numpy()
 
 
 def open_close_trajectory(model: URDFModel, steps: int) -> np.ndarray:

@@ -135,6 +135,20 @@ def test_knn_scale_init_matches_numpy(n):
                                atol=1e-7)
 
 
+@pytest.mark.parametrize("planar", [False, True], ids=["cloud", "planar"])
+def test_knn_matches_the_native_knn(planar):
+    """core/types.py::knn_mean_dist on the device covers the JAX
+    package's host C++ 3-NN (robosimgs_tpu.native, a grid hash; numpy
+    where it cannot build), at tests/test_native.py's tolerance."""
+    from robosimgs_tpu.native import knn_mean_dist as native_knn
+    pts = np.random.default_rng(11).normal(size=(3000, 3)).astype(np.float32)
+    if planar:
+        pts[:, 2] = 0.0
+    got = knn_mean_dist(torch.from_numpy(pts), k=3).numpy()
+    np.testing.assert_allclose(got, native_knn(pts, k=3), rtol=1e-4,
+                               atol=1e-6)
+
+
 def test_from_points_without_init_scale_matches_jax():
     pts = np.random.default_rng(3).uniform(-1, 1, (50, 3)).astype(np.float32)
     cols = np.random.default_rng(4).uniform(0, 1, (50, 3)).astype(np.float32)

@@ -280,10 +280,28 @@ def test_render_rollout_matches_jax(urdf_path, poses):
 
 
 def test_render_rollout_camera_mesh_not_ported(urdf_path):
+    """Camera sharding is ported now (tests/test_torch_rollout_sharded.py
+    holds it on two ranks): on a one-rank mesh it renders the unsharded
+    frames, and cameras of two resolutions cannot be sharded."""
+    import torch.distributed as dist
+
+    from robosimgs_tpu_torch.parallel.mesh import make_mesh
     (bg, obj, cams), _ = _rollout_inputs(urdf_path)
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item 5"):
-        rollout.render_rollout(bg, [obj], np.zeros((1, 1), np.float32), cams,
-                               camera_mesh=object())
+    traj = np.zeros((1, 1), np.float32)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = make_mesh(1, 1, device_type="cpu")
+        got = rollout.render_rollout(bg, [obj], traj, cams, camera_mesh=mesh,
+                                     cfg=RenderConfig(**CFG))
+        np.testing.assert_array_equal(got, rollout.render_rollout(
+            bg, [obj], traj, cams, cfg=RenderConfig(**CFG)))
+        small = cams[1].resized(24, 16)
+        with pytest.raises(ValueError, match="one resolution"):
+            rollout.render_rollout(bg, [obj], traj, [cams[0], small],
+                                   camera_mesh=mesh)
+    finally:
+        dist.destroy_process_group()
 
 
 @pytest.mark.parametrize("gate_db", [None, 60.0])
@@ -312,9 +330,16 @@ def test_cli_render_rollout_cpu(tmp_path, urdf_path):
     files = sorted(glob.glob(str(out / "frame_*.png")))
     assert len(files) == 4                          # 2 steps x 2 cameras
     assert all(np.asarray(Image.open(f)).shape == (32, 48, 3) for f in files)
-    with pytest.raises(SystemExit, match="not ported"):
-        cli_rollout.main(["--scene", scene, "--shard-cameras", "--device",
-                          "cpu", "--output", str(out)])
+    # --shard-cameras without a launcher: one rank, the same frames
+    shard = tmp_path / "shard"
+    cli_rollout.main(["--scene", scene, "--urdf", urdf_path, "--steps", "2",
+                      "--n-cameras", "2", "--width", "48", "--height", "32",
+                      "--autotune", "--device", "cpu", "--shard-cameras",
+                      "--output", str(shard)])
+    for f in files:
+        np.testing.assert_array_equal(
+            np.asarray(Image.open(f)),
+            np.asarray(Image.open(str(shard / f.rsplit("/", 1)[1]))))
 
 
 def _dense_lid_inputs(tmp_path):
