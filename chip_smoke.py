@@ -15,7 +15,7 @@ Phases, each of which raises on a fault (nothing is caught):
                splats on one corner of four tiles) and on a sparse view
                (60 splats over 256x256), where the backward skips work;
                the forward on 32x32 tiles (its 1024-thread instance);
-               the backward on 32x32 tiles (its four-pixel instance) on
+               the backward on 32x32 tiles (its split kernel) on
                those residuals and at the bench K=384 (T=64) with and
                without a depth limit, and on ragged 12x12 tiles;
                the backward on the forward kernel's residuals, with the
@@ -126,9 +126,13 @@ Phases, each of which raises on a fault (nothing is caught):
                against its plain version, the gradient against the
                per-camera sum, times and bound; on 32x32 tiles at the
                capacities recommend_capacities gives the bench view
-               both kernels against their plain versions and the
-               backward's time and bound, Trainer steps there, and a
-               small scene's gradients on the card against the CPU
+               the nblk distribution, both kernels against their plain
+               versions (the backward's split kernel without and with a
+               depth limit and with absgrad, two launches bit-equal),
+               their times and bounds, Trainer steps there, the same
+               steps as a CUDA graph bit-equal to them, the step's device
+               time by operation, and a small scene's gradients on the
+               card against the CPU
  12. multi-device — parallel/ at world size 1 over NCCL in this process
                (mesh (1, 1), the bench workload): the DP step and the
                gaussian-sharded step (all_gather, ring) against
@@ -146,6 +150,15 @@ Phases, each of which raises on a fault (nothing is caught):
                plain versions on the merged blocks), the ring step against
                the all_gather step, the camera-sharded rollout bit-equal,
                the bytes staged through the host. No scaling is measured
+ 13. feasibility — the JAX package's 3M-Gaussian config
+               (scripts/feasibility_3m.py; tools/workloads.py: 3M
+               Gaussians, SH 3, 512x512, 32-px tiles, K=2048, M=16, bbox
+               20): K=2048 against K=4096 above 60 dB, no truncated
+               Gaussian, both kernels against their plain versions with
+               their times and bounds and the nblk distribution, 5
+               Trainer steps (one launch of each kernel a step, finite
+               losses), the step's ms, peak memory and device time by
+               operation
 The line before the last lists the kernels; the last line is the result.
 Exits non-zero without a CUDA device.
 """
@@ -616,7 +629,7 @@ def main() -> int:
     err_skip = max(err_skip, compare_fwd(fwd_32, composite_fwd_plain(
         geom_32, feat_32, counts_32, None, **kw_32), "32x32 tiles",
         (geom_32, counts_32, None, kw_32))[0])
-    # 3e. the backward on 32x32 tiles (its four-pixel instance): on 3d's
+    # 3e. the backward on 32x32 tiles (its split kernel): on 3d's
     # residuals (K=1024), at the bench workload's K=384 (T=64; K is the
     # 16x16 capacity, so deep tiles truncate, which the kernel does not
     # mind) with and without a depth limit, and on ragged 12x12 tiles
@@ -954,6 +967,8 @@ def main() -> int:
     left = leftovers(dev, smi)
     # 12. the multi-device paths: world 1 over NCCL, two ranks over gloo
     multi = multidevice(dev, smi)
+    # 13. the JAX package's 3M-Gaussian 512x512 config
+    feas = feasibility(dev, smi)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
@@ -963,7 +978,8 @@ def main() -> int:
         "launches": launches_train[0], "max_abs_err": max(
             err_a, err_b, err_cli, err_skip, roll["max_abs_err"],
             pol["max_abs_err"], left["batch_max_abs_err"],
-            left["tile32_fwd_max_abs_err"], multi["fwd_max_abs_err"]),
+            left["tile32_fwd_max_abs_err"], multi["fwd_max_abs_err"],
+            feas["fwd_max_abs_err"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "rollout_launches": roll["launches"], "rollout_ms": roll["ms"],
@@ -982,13 +998,24 @@ def main() -> int:
         "graph_launches_per_step":
             left["graph_launches_per_step"]["composite_fwd"],
         "sharded_launches": multi["launches"][0],
-        "sharded_max_abs_err": multi["fwd_max_abs_err"]}, {
+        "sharded_max_abs_err": multi["fwd_max_abs_err"],
+        "tile32_ms": left["tile32_fwd_ms"],
+        "tile32_plain_ms": left["tile32_fwd_plain_ms"],
+        "tile32_bound_ms": left["tile32_fwd_bound_ms"],
+        "tile32_bound_by": left["tile32_fwd_bound_by"],
+        "tile32_max_abs_err": left["tile32_fwd_max_abs_err"],
+        "feasibility_launches": feas["launches"][0],
+        "feasibility_ms": feas["fwd_ms"],
+        "feasibility_plain_ms": feas["fwd_plain_ms"],
+        "feasibility_bound_ms": feas["fwd_bound_ms"],
+        "feasibility_bound_by": feas["fwd_bound_by"],
+        "feasibility_max_abs_err": feas["fwd_max_abs_err"]}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "robosimgs_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "robosimgs_tpu/render/pallas_kernels.py:221",
         "launches": launches_train[1], "max_abs_err": max(
             err_bwd, err_32, left["tile32_max_abs_err"],
-            multi["bwd_max_abs_err"]),
+            multi["bwd_max_abs_err"], feas["bwd_max_abs_err"]),
         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by, "library_ms": None,
         "tile32_K": left["tile32_K"], "tile32_ms": left["tile32_ms"],
@@ -999,7 +1026,15 @@ def main() -> int:
         "graph_launches_per_step":
             left["graph_launches_per_step"]["composite_bwd"],
         "sharded_launches": multi["launches"][1],
-        "sharded_max_abs_err": multi["bwd_max_abs_err"]}]}))
+        "sharded_max_abs_err": multi["bwd_max_abs_err"],
+        "tile32_splits": left["tile32_splits"],
+        "feasibility_launches": feas["launches"][1],
+        "feasibility_splits": feas["splits"],
+        "feasibility_ms": feas["bwd_ms"],
+        "feasibility_plain_ms": feas["bwd_plain_ms"],
+        "feasibility_bound_ms": feas["bwd_bound_ms"],
+        "feasibility_bound_by": feas["bwd_bound_by"],
+        "feasibility_max_abs_err": feas["bwd_max_abs_err"]}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0
@@ -2439,16 +2474,50 @@ def segment(dev, smi: str) -> None:
 def kernel_counts(prof, n: int) -> dict:
     """{name: launches per step} of the compositing kernels in a profile
     of n steps (the device-side records: inside a CUDA graph's replays
-    too, where no wrapper runs)."""
+    too, where no wrapper runs). composite_bwd counts both of its
+    kernels (composite_bwd_kernel, composite_bwd_split_kernel)."""
     import torch
     counts = {"composite_fwd": 0, "composite_bwd": 0}
     for e in prof.key_averages():
         if e.device_type != torch.autograd.DeviceType.CUDA:
             continue
         for name in counts:
-            if f"{name}_kernel" in e.key:
+            if f"{name}_kernel" in e.key or f"{name}_split_kernel" in e.key:
                 counts[name] += e.count
     return {k: v / n for k, v in counts.items()}
+
+
+def nblk_histogram(nblk) -> str:
+    """The processed 128-splat blocks per tile: 'value x tiles', by value."""
+    import torch
+    vals, cnt = torch.unique(nblk.cpu(), return_counts=True)
+    return (f"nblk max {int(nblk.max())} mean {float(nblk.float().mean()):.2f}"
+            f" sum {int(nblk.sum())}; tiles by nblk "
+            + " ".join(f"{int(v)}x{int(c)}" for v, c in zip(vals, cnt)))
+
+
+def device_ops(prof, n: int, tag: str, top: int = 8) -> dict:
+    """Logs a profile of n steps by device operation (kernels, copies,
+    sets; self time a step) and returns {"total_ms", "transpose_ms",
+    "top"}: transpose_ms is the row gather's autograd transpose (PyTorch's
+    indexing_backward kernels)."""
+    import torch
+    events = [e for e in prof.key_averages()
+              if e.device_type == torch.autograd.DeviceType.CUDA
+              and e.self_device_time_total > 0]
+    total = sum(e.self_device_time_total for e in events) / 1e3 / n
+    transpose = sum(e.self_device_time_total for e in events
+                    if "indexing_backward" in e.key) / 1e3 / n
+    log(f"  {tag}: device time {total:.4f} ms a step over "
+        f"{sum(e.count for e in events) / n:.0f} operations; the gather's "
+        f"transpose (indexing_backward) {transpose:.4f} ms, share "
+        f"{transpose / max(total, 1e-12):.3f}")
+    rows = []
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:
+        ms = e.self_device_time_total / 1e3 / n
+        rows.append((ms, e.count / n, e.key[:90]))
+        log(f"    {ms:8.4f} ms x{e.count / n:<6.1f} {e.key[:90]}")
+    return dict(total_ms=total, transpose_ms=transpose, top=rows)
 
 
 def trace_busy(prof):
@@ -2499,16 +2568,14 @@ def leftovers(dev, smi: str) -> dict:
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    from robosimgs_tpu_torch import Camera, Gaussians
+    from robosimgs_tpu_torch import Gaussians
     from robosimgs_tpu_torch.cli import render as cli_render
     from robosimgs_tpu_torch.cli import train as cli_train
-    from robosimgs_tpu_torch.render.autotune import recommend_capacities
     from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
     from robosimgs_tpu_torch.render.compose import merge_mesh_layers
     from robosimgs_tpu_torch.render.config import RenderConfig
     from robosimgs_tpu_torch.render.gathered import tile_image
     from robosimgs_tpu_torch.render.kernels import (composite_bwd,
-                                                    composite_bwd_plain,
                                                     composite_fwd,
                                                     composite_fwd_plain)
     from robosimgs_tpu_torch.render.mesh_raster import rasterize_mesh
@@ -2528,7 +2595,6 @@ def leftovers(dev, smi: str) -> dict:
                                                     identity_bilagrid)
     from robosimgs_tpu_torch.train.data import (Frame, camera_extent,
                                                 synthetic_scene)
-    from robosimgs_tpu_torch.train.losses import photometric_loss
     from robosimgs_tpu_torch.train.trainer import TrainConfig, Trainer
     from robosimgs_tpu_torch.utils.imresize import read_png_rgb
 
@@ -2910,50 +2976,140 @@ def leftovers(dev, smi: str) -> dict:
                    batch_max_abs_err=batch_err)
     del g_r, projs, out_b, singles, binned, geom_b, feat_b
 
-    # 11e. Trainer steps on 32x32 tiles (the JAX package's tile size for
-    # its 3M-Gaussian config), capacities measured for them; first both
-    # kernels against their plain versions at that shape, and the
-    # backward's time and bound there
+    # 11e. on 32x32 tiles: tile32
+    res_out.update(tile32(dev, smi))
+
+    # 11f. the grid's gate: 11b's run at lr 1e-3 against 11b's off run.
+    # The JAX test's lr 5e-3 (4 cameras, 40 Gaussians) loses on 24
+    # cameras, and more steps widen the gap (PERF.md): the 600-step
+    # pair is reported
+    colour_runs("bilateral_grid", darkened, 300, 1e-3, True,
+                off=grid_300[False])
+    colour_runs("bilateral_grid", darkened, 600, 5e-3, False)
+    log(f"  phase 11 {time.perf_counter() - t11:.1f} s")
+    return res_out
+
+
+def tile32(dev, smi: str) -> dict:
+    """Phase 11e: the bench view on 32x32 tiles (the JAX package's tile
+    size for its 3M-Gaussian config) at the capacities
+    recommend_capacities measures for it: the nblk distribution, both
+    kernels against their plain versions (the backward's split kernel
+    without and with a depth limit, and with absgrad; two launches
+    bit-equal), their times and bounds; Trainer steps there, the same
+    steps as a CUDA graph bit-equal to them, the step's device time by
+    operation, and a small scene's gradients card against CPU. Returns
+    the numbers of the kernels line."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from robosimgs_tpu_torch import Camera, Gaussians
+    from robosimgs_tpu_torch.render.autotune import recommend_capacities
+    from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
+    from robosimgs_tpu_torch.render.config import RenderConfig
+    from robosimgs_tpu_torch.render.kernels import (bwd_splits,
+                                                    composite_bwd,
+                                                    composite_bwd_plain,
+                                                    composite_fwd,
+                                                    composite_fwd_plain)
+    from robosimgs_tpu_torch.render.project import project
+    from robosimgs_tpu_torch.render.tiled import composite_tiled
+    from robosimgs_tpu_torch.render.tiles import num_tiles
+    from robosimgs_tpu_torch.tools.workloads import bench_scene, time_ms
+    from robosimgs_tpu_torch.train.data import Frame
+    from robosimgs_tpu_torch.train.losses import photometric_loss
+    from robosimgs_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                   make_train_step)
+
+    out = {}
+    g, cam, _ = bench_scene(dev)
+    res = cam.width
+    bench_frames = [Frame(camera=cam, image=np.zeros((res, res, 3),
+                                                     np.float32))]
     cfg32 = recommend_capacities(g, [cam], base=RenderConfig(tile_size=32))
     with torch.no_grad():
         geom_w, feat_w, counts_w, st32 = bin_and_gather_packed(
             project(g, cam, cfg32), res, res, cfg32)
         tx32 = num_tiles(res, res, 32)[0]
+        T32, K32 = geom_w.shape[0], geom_w.shape[2]
         kw_w = dict(tiles_x=tx32, cfg=cfg32, has_dlim=False)
         fwd_w = composite_fwd(geom_w, feat_w, counts_w, None, **kw_w)
         torch.cuda.synchronize()
-        log(f"  32x32 tiles at the trainer's capacities: T="
-            f"{geom_w.shape[0]} K={geom_w.shape[2]}, counts max "
-            f"{int(counts_w.max())}, nblk max {int(fwd_w[2].max())}")
+        splits32 = bwd_splits(T32, K32, 1024, torch.cuda.get_device_properties(
+            dev).multi_processor_count)
+        log(f"  32x32 tiles at the trainer's capacities: T={T32} K={K32} "
+            f"(backward: {splits32} blocks a tile), counts max "
+            f"{int(counts_w.max())}; {nblk_histogram(fwd_w[2])}")
         fwd_err = compare_fwd(fwd_w, composite_fwd_plain(
-            geom_w, feat_w, counts_w, None, **kw_w),
-            f"32x32 tiles K={geom_w.shape[2]}",
+            geom_w, feat_w, counts_w, None, **kw_w), f"32x32 tiles K={K32}",
             (geom_w, counts_w, None, kw_w))[0]
         gout_w = torch.randn(fwd_w[0].shape, generator=torch.Generator()
                              .manual_seed(32)).to(dev)
         args_w = (geom_w, feat_w, counts_w, None, gout_w, *fwd_w[1:])
         got_w = composite_bwd(*args_w, **kw_w)
+        again = composite_bwd(*args_w, **kw_w)
         torch.cuda.synchronize()
         bwd_err = compare_bwd(got_w, composite_bwd_plain(*args_w, **kw_w),
-                              f"bwd 32x32 tiles K={geom_w.shape[2]}")
+                              f"bwd 32x32 tiles K={K32}")
+        if not all(torch.equal(a, b) for a, b in zip(got_w, again)):
+            raise AssertionError("two launches of the split backward differ")
+        dlim_w = (torch.rand((T32, 1024, 1), generator=torch.Generator()
+                             .manual_seed(33)) * 4.0 + 2.0).to(dev)
+        kw_d = dict(kw_w, has_dlim=True)
+        fwd_d = composite_fwd(geom_w, feat_w, counts_w, dlim_w, **kw_d)
+        args_d = (geom_w, feat_w, counts_w, dlim_w, gout_w, *fwd_d[1:])
+        bwd_err = max(bwd_err, compare_bwd(
+            composite_bwd(*args_d, **kw_d),
+            composite_bwd_plain(*args_d, **kw_d), f"bwd 32x32 K={K32} dlim"))
+        cfg32a = dataclasses.replace(cfg32, absgrad=True)
+        geom_a, feat_a, counts_a, _ = bin_and_gather_packed(
+            project(g, cam, cfg32a, abs_probe=torch.zeros(
+                (g.capacity, 2), device=dev)), res, res, cfg32a)
+        kw_a = dict(kw_w, cfg=cfg32a)
+        fwd_a = composite_fwd(geom_a, feat_a, counts_a, None, **kw_a)
+        args_a = (geom_a, feat_a, counts_a, None, gout_w, *fwd_a[1:])
+        got_a = composite_bwd(*args_a, **kw_a)
+        torch.cuda.synchronize()
+        bwd_err = max(bwd_err, compare_bwd(
+            got_a, composite_bwd_plain(*args_a, **kw_a),
+            f"bwd 32x32 K={K32} absgrad"))
+        if float(got_a[0][:, 7].max()) <= 0.0:
+            raise AssertionError("32x32 absgrad rows are empty")
+        del geom_a, feat_a, fwd_a, args_a, got_a, fwd_d, args_d, again
         tile32_ms = time_ms(lambda: composite_bwd(*args_w, **kw_w), reps=100)
         tile32_plain_ms = time_ms(lambda: composite_bwd_plain(
             *args_w, **kw_w), reps=2, warmup=1)
-        tile32_bound_ms, tile32_bound_by, tile32_detail = bwd_bound(
+        fwd32_ms = time_ms(lambda: composite_fwd(geom_w, feat_w, counts_w,
+                                                 None, **kw_w), reps=100)
+        fwd32_plain_ms = time_ms(lambda: composite_fwd_plain(
+            geom_w, feat_w, counts_w, None, **kw_w), reps=2, warmup=1)
+        fwd32_bound_ms, fwd32_bound_by, fwd32_detail, work32 = fwd_bound(
             geom_w, counts_w, fwd_w[2], None, tx32, cfg32)
-    log(f"  composite_bwd on 32x32 tiles (T={geom_w.shape[0]}, K="
-        f"{geom_w.shape[2]}) {tile32_ms:.4f} ms, plain {tile32_plain_ms:.4f} "
+        tile32_bound_ms, tile32_bound_by, tile32_detail = bwd_bound(
+            geom_w, counts_w, fwd_w[2], None, tx32, cfg32, work32)
+    log(f"  composite_fwd on 32x32 tiles (T={T32}, K={K32}) {fwd32_ms:.4f} "
+        f"ms, plain {fwd32_plain_ms:.4f} ms; bound {fwd32_bound_ms:.6f} ms "
+        f"({fwd32_detail}), share {fwd32_bound_ms / fwd32_ms:.4f} ({smi})")
+    log(f"  composite_bwd on 32x32 tiles (T={T32}, K={K32}, {splits32} "
+        f"blocks a tile) {tile32_ms:.4f} ms, plain {tile32_plain_ms:.4f} "
         f"ms; bound {tile32_bound_ms:.6f} ms ({tile32_detail}), share "
-        f"{tile32_bound_ms / tile32_ms:.4f} ({smi})")
-    res_out.update(tile32_ms=tile32_ms, tile32_plain_ms=tile32_plain_ms,
+        f"{tile32_bound_ms / tile32_ms:.4f}; library call: none ({smi})")
+    out.update(tile32_ms=tile32_ms, tile32_plain_ms=tile32_plain_ms,
                    tile32_bound_ms=tile32_bound_ms,
-                   tile32_bound_by=tile32_bound_by, tile32_K=geom_w.shape[2],
-                   tile32_max_abs_err=bwd_err, tile32_fwd_max_abs_err=fwd_err)
+                   tile32_bound_by=tile32_bound_by, tile32_K=K32,
+                   tile32_splits=splits32,
+                   tile32_max_abs_err=bwd_err, tile32_fwd_max_abs_err=fwd_err,
+                   tile32_fwd_ms=fwd32_ms, tile32_fwd_plain_ms=fwd32_plain_ms,
+                   tile32_fwd_bound_ms=fwd32_bound_ms,
+                   tile32_fwd_bound_by=fwd32_bound_by)
     del geom_w, feat_w, fwd_w, gout_w, args_w, got_w
-    tr = Trainer(TrainConfig(render=cfg32, impl="tiled", sh_warmup_every=1,
-                             densify_from=10**9, opacity_reset_interval=10**9,
-                             dynamic_pool=False, log_every=1), g,
-                 bench_frames)
+    cfg_t32 = TrainConfig(render=cfg32, impl="tiled", sh_warmup_every=1,
+                          densify_from=10**9, opacity_reset_interval=10**9,
+                          dynamic_pool=False, log_every=1)
+    tr = Trainer(cfg_t32, g, bench_frames)
     composite_fwd.launches = composite_bwd.launches = 0
     tr.run(iterations=3, progress=False)
     torch.cuda.synchronize()
@@ -2968,6 +3124,40 @@ def leftovers(dev, smi: str) -> dict:
     if int(st32.truncated_gaussians) or int(st32.overflowed_tiles) \
             or l32 != (3, 3) or not all(np.isfinite(losses)):
         raise AssertionError("the 32x32-tile train steps failed")
+    # the same 3 steps as one CUDA graph replayed 3 times: bit for bit
+    trg = Trainer(dataclasses.replace(cfg_t32, fused_steps=3), g,
+                  bench_frames)
+    trg.run(iterations=3, progress=False)
+    torch.cuda.synchronize()
+    graph_equal = all(
+        torch.equal(getattr(trg.state.gaussians, f.name),
+                    getattr(tr.state.gaussians, f.name))
+        for f in dataclasses.fields(tr.state.gaussians)) and [
+        h["loss"] for h in trg.history] == losses
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        trg.run(iterations=3, progress=False)
+        torch.cuda.synchronize()
+    kc32 = kernel_counts(prof, 3)
+    log(f"  32x32 graphed steps (fused_steps 3, "
+        f"{len(trg._fused_steps_fn.capture_seconds)} capture) against the "
+        f"eager steps: bit-equal {graph_equal}; kernels a replayed step "
+        f"composite_fwd {kc32['composite_fwd']:.2f} composite_bwd "
+        f"{kc32['composite_bwd']:.2f}")
+    if not graph_equal or min(kc32.values()) < 1.0:
+        raise AssertionError("the graphed 32x32 step is not the eager one")
+    del trg
+    # where the 32x32 step's device time goes
+    step32, st = make_train_step(cfg_t32, "tiled"), tr.state
+    tgt = torch.zeros((res, res, 3), device=dev)
+    step32(st, cam, tgt)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(2):
+            st, _ = step32(st, cam, tgt)
+        torch.cuda.synchronize()
+    out["tile32_step_ops"] = device_ops(prof, 2, "32x32 train step")
+    del tr, st
     small = Gaussians.random(torch.Generator().manual_seed(2), 2000,
                              sh_degree=3, extent=1.5, device=dev)
     small = small.replace(log_scales=small.log_scales + 0.5 * torch.randn(
@@ -2994,15 +3184,155 @@ def leftovers(dev, smi: str) -> dict:
         if e > 1e-3 * scale:
             raise AssertionError(f"{k} gradients differ on the card at 32x32")
 
-    # 11f. the grid's gate: 11b's run at lr 1e-3 against 11b's off run.
-    # The JAX test's lr 5e-3 (4 cameras, 40 Gaussians) loses on 24
-    # cameras, and more steps widen the gap (PERF.md): the 600-step
-    # pair is reported
-    colour_runs("bilateral_grid", darkened, 300, 1e-3, True,
-                off=grid_300[False])
-    colour_runs("bilateral_grid", darkened, 600, 5e-3, False)
-    log(f"  phase 11 {time.perf_counter() - t11:.1f} s")
-    return res_out
+    return out
+
+
+def feasibility(dev, smi: str) -> dict:
+    """Phase 13: the JAX package's largest single-chip scene, the
+    counterpart of scripts/feasibility_3m.py (tools/workloads.py
+    feasibility_scene: 3M Gaussians, SH 3, 512x512, 32-px tiles, K=2048,
+    M=16, bbox 20). Gates: the render at K=2048 against K=4096 above 60
+    dB (the script's capacity-doubling gate) and no truncated Gaussian.
+    Both kernels against their plain versions on this shape's residuals,
+    their times and bounds; 5 train steps against a zero target through
+    the Trainer (one launch of each kernel a step, finite losses), the
+    step's ms by CUDA events, peak memory, and its device time by
+    operation from one profiled step. Returns the numbers of the kernels
+    line."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
+    from robosimgs_tpu_torch.render.kernels import (bwd_splits,
+                                                    composite_bwd,
+                                                    composite_bwd_plain,
+                                                    composite_fwd,
+                                                    composite_fwd_plain)
+    from robosimgs_tpu_torch.render.project import project
+    from robosimgs_tpu_torch.render.rasterize import rasterize
+    from robosimgs_tpu_torch.render.tiles import num_tiles
+    from robosimgs_tpu_torch.tools.workloads import (feasibility_config,
+                                                     feasibility_scene,
+                                                     time_ms)
+    from robosimgs_tpu_torch.train.data import Frame
+    from robosimgs_tpu_torch.train.trainer import (TrainConfig, Trainer,
+                                                   make_train_step)
+
+    t13 = time.perf_counter()
+    g, cam, cfg = feasibility_scene(dev)
+    res = cam.width
+    torch.cuda.synchronize()
+    log(f"[13 feasibility] {g.capacity} Gaussians SH 3 at {res}x{res}, "
+        f"tile {cfg.tile_size} K={cfg.tile_capacity} M="
+        f"{cfg.max_tiles_per_gaussian} bbox {cfg.bbox_tiles_per_gaussian} "
+        f"({time.perf_counter() - t13:.1f} s to make)")
+    # the capacity-doubling gate, and no truncation at either K
+    rgb = {}
+    with torch.no_grad():
+        for k in (4096, 2048):
+            out = rasterize(g, cam, feasibility_config(k), impl="tiled",
+                            return_stats=True)
+            st = out["stats"]
+            log(f"  K={k}: truncated {int(st.truncated_gaussians)}, "
+                f"overflowed tiles {int(st.overflowed_tiles)}, max tile count "
+                f"{int(st.max_tile_count)}, pairs {int(st.total_pairs)}")
+            if int(st.truncated_gaussians) != 0:
+                raise AssertionError(f"the 3M config truncates at K={k}")
+            rgb[k] = out["rgb"]
+    gate_db = psnr(rgb[2048], rgb[4096])
+    log(f"  K=2048 against K=4096 (capacity doubling): {gate_db:.2f} dB")
+    if gate_db <= 60.0:
+        raise AssertionError(f"K=2048 at {gate_db} dB of K=4096")
+    del rgb
+    # both kernels against their plain versions at this shape
+    with torch.no_grad():
+        geom, feat, counts, _ = bin_and_gather_packed(
+            project(g, cam, cfg), res, res, cfg)
+        T, K = geom.shape[0], geom.shape[2]
+        tx = num_tiles(res, res, cfg.tile_size)[0]
+        kw = dict(tiles_x=tx, cfg=cfg, has_dlim=False)
+        fwd = composite_fwd(geom, feat, counts, None, **kw)
+        torch.cuda.synchronize()
+        splits = bwd_splits(T, K, cfg.tile_size ** 2,
+                            torch.cuda.get_device_properties(dev)
+                            .multi_processor_count)
+        log(f"  T={T} K={K} (backward: {splits} block(s) a tile); "
+            f"{nblk_histogram(fwd[2])}")
+        fwd_err = compare_fwd(fwd, composite_fwd_plain(
+            geom, feat, counts, None, **kw), "3M 512x512",
+            (geom, counts, None, kw))[0]
+        gout = torch.randn(fwd[0].shape, generator=torch.Generator()
+                           .manual_seed(13)).to(dev)
+        args = (geom, feat, counts, None, gout, *fwd[1:])
+        got = composite_bwd(*args, **kw)
+        again = composite_bwd(*args, **kw)
+        torch.cuda.synchronize()
+        bwd_err = compare_bwd(got, composite_bwd_plain(*args, **kw),
+                              "bwd 3M 512x512")
+        if not all(torch.equal(a, b) for a, b in zip(got, again)):
+            raise AssertionError("two backward launches differ at 3M")
+        del got, again
+        fwd_ms = time_ms(lambda: composite_fwd(geom, feat, counts, None,
+                                               **kw), reps=100)
+        fwd_plain_ms = time_ms(lambda: composite_fwd_plain(
+            geom, feat, counts, None, **kw), reps=2, warmup=1)
+        bwd_ms = time_ms(lambda: composite_bwd(*args, **kw), reps=100)
+        bwd_plain_ms = time_ms(lambda: composite_bwd_plain(*args, **kw),
+                               reps=2, warmup=1)
+        fb_ms, fb_by, fb_detail, work = fwd_bound(geom, counts, fwd[2], None,
+                                                  tx, cfg)
+        bb_ms, bb_by, bb_detail = bwd_bound(geom, counts, fwd[2], None, tx,
+                                            cfg, work)
+    log(f"  composite_fwd {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms; bound "
+        f"{fb_ms:.6f} ms ({fb_detail}), share {fb_ms / fwd_ms:.4f} ({smi})")
+    log(f"  composite_bwd {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms; bound "
+        f"{bb_ms:.6f} ms ({bb_detail}), share {bb_ms / bwd_ms:.4f}; library "
+        f"call: none ({smi})")
+    del geom, feat, counts, fwd, gout, args
+    # 5 train steps against a zero target
+    cfg_t = TrainConfig(render=cfg, impl="tiled", sh_warmup_every=1,
+                        densify_from=10**9, opacity_reset_interval=10**9,
+                        dynamic_pool=False, log_every=1)
+    tr = Trainer(cfg_t, g, [Frame(camera=cam, image=np.zeros(
+        (res, res, 3), np.float32))])
+    del g
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    composite_fwd.launches = composite_bwd.launches = 0
+    tr.run(iterations=5, progress=False)
+    torch.cuda.synchronize()
+    launches = (composite_fwd.launches, composite_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    losses = [h["loss"] for h in tr.history]
+    step_fn, st = make_train_step(cfg_t, "tiled"), tr.state
+    tgt = torch.zeros((res, res, 3), device=dev)
+
+    def train_step():
+        nonlocal st
+        st, _ = step_fn(st, cam, tgt)
+
+    step_ms = time_ms(train_step, reps=5, warmup=1)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        train_step()
+        torch.cuda.synchronize()
+    log(f"  Trainer 5 steps: launches {launches}, loss "
+        + " ".join(f"{x:.6f}" for x in losses)
+        + f", overflow {[h['overflow'] for h in tr.history]}; step "
+        f"{step_ms:.4f} ms (CUDA events, mean of 5); peak memory "
+        f"{peak / 2**30:.3f} GiB ({smi})")
+    ops = device_ops(prof, 1, "3M train step")
+    if launches != (5, 5) or not all(np.isfinite(losses)):
+        raise AssertionError("the 3M train steps failed")
+    log(f"  phase 13 {time.perf_counter() - t13:.1f} s")
+    return dict(launches=launches, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
+                fwd_bound_ms=fb_ms, fwd_bound_by=fb_by,
+                fwd_max_abs_err=fwd_err, bwd_ms=bwd_ms,
+                bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bb_ms,
+                bwd_bound_by=bb_by, bwd_max_abs_err=bwd_err, splits=splits,
+                gate_db=gate_db, step_ms=step_ms, peak_bytes=peak,
+                step_ops=ops)
 
 
 if __name__ == "__main__":

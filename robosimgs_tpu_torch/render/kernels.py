@@ -30,15 +30,20 @@ What bounds both kernels on an H100: per evaluated (pixel, splat) pair
 about 17 FP32 operations (one of them an SFU exp), and per pair that
 adds weight about 22 more in the forward (a log1p, 8 channel FMAs) and
 about 74 more in the backward (the gate, gamma's 8 FMAs, 14 products
-summed over the tile), against 64 B of geom/feat per splat shared by the tile's 256
-pixels — operations, by a wide margin. Both stage each splat block once
-into shared memory by cp.async, one block ahead, and keep every
-per-pixel value in registers; the forward evaluates 8 alphas ahead of
-its serial transmittance update, and the backward evaluates each alpha
-once and skips, exactly, the slots no pixel of a warp keeps and the
-groups every pixel of a warp enters saturated. Not yet done: TMA
-staging, several tiles per block, tensor-core forms of the backward's
-sums over pixels; the csrc/ sources have the details.
+summed over the tile), against 64 B of geom/feat per splat shared by the
+tile's pixels — operations at 16x16, while at 32x32 and a deep capacity
+the backward's 64 B written per slot bound it. Both stage each splat
+block once into shared memory by cp.async, one block ahead, and keep
+every per-pixel value in registers; the forward evaluates 8 alphas ahead
+of its serial transmittance update, and the backward evaluates each
+alpha once and skips, exactly, the slots no pixel of a warp keeps and
+the groups every pixel of a warp enters saturated. On tiles over 16x16
+(or not in whole warps) the backward splits each tile's processed
+blocks across `bwd_splits` blocks of one thread-block cluster, which
+pass each other the suffix they carry in, and launches the deepest
+tiles first. Not yet done: TMA staging,
+tensor-core forms of the backward's sums over pixels; the csrc/ sources
+have the details.
 
 On a CPU tensor each wrapper runs its plain torch version
 (`composite_fwd_plain`, `composite_bwd_plain`); on a CUDA tensor it
@@ -50,6 +55,7 @@ everything else in another).
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -66,6 +72,42 @@ LT_GROUP = 16
 # tiles per pass of the plain versions: bounds their (tiles, P, BK)
 # temporaries
 _PLAIN_TILE_CHUNK = 128
+# the most blocks the backward splits a tile across (one thread-block
+# cluster of the portable size; csrc/composite_bwd.cu MAX_SPLITS)
+MAX_SPLITS = 8
+
+
+def _split_kernel(P: int) -> bool:
+    """Whether the backward runs tiles of P pixels through its split
+    kernel: all but whole warps up to 16x16."""
+    return P % 32 != 0 or P > 256
+
+
+def bwd_splits(n_tiles: int, K: int, P: int, n_sms: int) -> int:
+    """Blocks per tile of the backward kernel: 1 for tiles of whole warps
+    up to 16x16 (one block a tile), else the most that keeps n_tiles x
+    splits within 2 n_sms, at most one per processed block of a full tile
+    (K / BK) and MAX_SPLITS. The split kernel holds one block per SM and
+    launches the deepest tiles first, so a second wave of short ranges
+    fills in behind the long ones; more splits than that add work (each
+    range but the first is walked once more for its suffix sums). On the
+    card this rule picked the fastest count measured at 64 and at 256
+    tiles (PERF.md). From the shapes alone: how many blocks a tile
+    processed (nblk) stays on the device."""
+    if not _split_kernel(P):
+        return 1
+    return max(1, min(K // BK, MAX_SPLITS, 2 * n_sms // max(n_tiles, 1)))
+
+
+def split_range(nb: int, rank: int, splits: int) -> tuple[int, int]:
+    """[lo, hi): the processed blocks that block `rank` of a tile's
+    `splits` sweeps when the tile processed nb (the kernel's own rule)."""
+    return rank * nb // splits, (rank + 1) * nb // splits
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: torch.device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
 
 
 def _check_chunking(cfg: RenderConfig, CK: int) -> None:
@@ -111,11 +153,14 @@ def _check_inputs(geom, feat, counts, dlim, cfg, has_dlim):
 
 
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-# the C signatures of csrc/*.cu's launch functions: tensors, the int
-# shapes, the 3 RenderConfig thresholds, (backward) absgrad, the stream
+# the C signatures of csrc/*.cu's launch functions: tensors (the
+# backward's with the launch order of the tiles), the int shapes, the 3
+# RenderConfig thresholds, (backward) absgrad and the splits a tile, the
+# stream
 _ARGTYPES = {
     "composite_fwd": [_PTR] * 8 + [_I32] * 5 + [_F32] * 3 + [_PTR],
-    "composite_bwd": [_PTR] * 10 + [_I32] * 5 + [_F32] * 3 + [_I32, _PTR],
+    "composite_bwd": [_PTR] * 11 + [_I32] * 5 + [_F32] * 3 + [_I32] * 2
+    + [_PTR],
 }
 
 
@@ -312,15 +357,22 @@ def composite_bwd(geom: torch.Tensor, feat: torch.Tensor,
     if T == 0:
         return dgeom, dfeat
     lib = _lib("composite_bwd")
+    P = cfg.tile_size ** 2
+    splits = bwd_splits(T, K, P, _sm_count(geom.device))
+    # the split kernel's launch order, deepest tiles first (on the device:
+    # the host never reads nblk)
+    order = (torch.argsort(nblk, descending=True, stable=True).to(torch.int32)
+             if _split_kernel(P) else None)
     stream = torch.cuda.current_stream(geom.device).cuda_stream
     with torch.cuda.device(geom.device):
         rc = lib.composite_bwd_launch(
             geom.data_ptr(), feat.data_ptr(), counts.data_ptr(),
             dlim.data_ptr() if has_dlim else None, gout.data_ptr(),
             log_t_final.data_ptr(), log_t_groups.data_ptr(), nblk.data_ptr(),
-            dgeom.data_ptr(), dfeat.data_ptr(), T, K, tiles_x, n_tiles_per_image or T,
+            None if order is None else order.data_ptr(), dgeom.data_ptr(),
+            dfeat.data_ptr(), T, K, tiles_x, n_tiles_per_image or T,
             cfg.tile_size, cfg.alpha_clamp, cfg.alpha_min,
-            cfg.transmittance_min, int(cfg.absgrad), stream)
+            cfg.transmittance_min, int(cfg.absgrad), splits, stream)
     _raise_on(lib, "composite_bwd", rc)
     composite_bwd.launches += 1
     return dgeom, dfeat

@@ -12,7 +12,9 @@ its own composite_fwd and composite_bwd, so an older interface needs
 nothing here: the backward is given whatever residuals its forward
 returned after `out`.
 
-On the bench view and the same scene's two 640x480 orbit views
+On the bench view, the same scene's two 640x480 orbit views, the bench
+view on 32x32 tiles at the capacities recommend_capacities gives it, and
+the feasibility workload's 512x512 view on 32x32 tiles
 (tools/workloads.py) it prints each build's ptxas report, the largest
 difference of out, log_t_final, nblk, dgeom and dfeat from this
 checkout's (the sign of a zero is no difference), and each build's
@@ -33,11 +35,14 @@ from pathlib import Path
 import torch
 
 from robosimgs_tpu_torch.render import _build, kernels
+from robosimgs_tpu_torch.render.autotune import recommend_capacities
 from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
+from robosimgs_tpu_torch.render.config import RenderConfig
 from robosimgs_tpu_torch.render.project import project
 from robosimgs_tpu_torch.render.tiles import num_tiles
-from robosimgs_tpu_torch.tools.workloads import (bench_scene, orbit_views,
-                                                 time_ms)
+from robosimgs_tpu_torch.tools.workloads import (bench_scene,
+                                                 feasibility_scene,
+                                                 orbit_views, time_ms)
 
 PKG = "robosimgs_tpu_torch"
 OUTPUTS = ("out", "log_t_final", "nblk", "dgeom", "dfeat")
@@ -75,19 +80,26 @@ def max_diff(a: torch.Tensor, b: torch.Tensor) -> float:
     return float(torch.nan_to_num((a - b).abs(), nan=float("inf")).max())
 
 
+def view_blocks(g, c, cf):
+    geom, feat, counts, _ = bin_and_gather_packed(
+        project(g, c, cf), c.width, c.height, cf)
+    kw = dict(tiles_x=num_tiles(c.width, c.height, cf.tile_size)[0],
+              cfg=cf, has_dlim=False)
+    return geom, feat, counts, kw
+
+
 def views(dev):
-    """[(tag, geom, feat, counts, kw)] of the bench view and the orbit
-    views."""
+    """Yields (tag, geom, feat, counts, kw) of the bench view, the orbit
+    views, the bench view on 32x32 tiles and the feasibility view (made
+    one after the other: the 3M scene is freed before the next)."""
     g, cam, cfg = bench_scene(dev)
-    out = []
     for tag, (c, cf) in [("bench 256x256", (cam, cfg))] + [
             (f"orbit {i} 640x480", v) for i, v in enumerate(orbit_views(g, dev))]:
-        geom, feat, counts, _ = bin_and_gather_packed(
-            project(g, c, cf), c.width, c.height, cf)
-        kw = dict(tiles_x=num_tiles(c.width, c.height, cf.tile_size)[0],
-                  cfg=cf, has_dlim=False)
-        out.append((tag, geom, feat, counts, kw))
-    return out
+        yield (tag, *view_blocks(g, c, cf))
+    cfg32 = recommend_capacities(g, [cam], base=RenderConfig(tile_size=32))
+    yield ("bench 32x32 tiles", *view_blocks(g, cam, cfg32))
+    del g
+    yield ("feasibility 512x512", *view_blocks(*feasibility_scene(dev)))
 
 
 def main(argv=None) -> int:

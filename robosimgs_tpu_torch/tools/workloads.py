@@ -7,6 +7,13 @@ Gaussians, SH degree 3, extent 1.5, 256x256, look_at([4, 0.5, 1.2] -> 0,
 60 deg), K=384, M=10, bbox 12, two-tier 4/0.15), drawn from
 torch.Generator seed 0.
 
+The feasibility workload is the JAX package's largest single-chip
+scene, scripts/feasibility_3m.py:34-45,75-78: 3M random Gaussians, SH
+degree 3, extent 1.5, 512x512 from the bench camera, 32-px tiles (16-px
+tiles overflow the JAX binner's packed 31-bit sort key at 3M), K=2048
+(gated against K=4096), tile_chunk 512, M=16, bbox 20, single tier,
+drawn from torch.Generator seed 5.
+
 The rollout workload has the statistics of bench.py's rollout config
 (200k random Gaussians, SH degree 2, extent 1.5, four 640x480 cameras at
 look_at([3.0 + 0.1 i, 0.4, 1.0] -> 0, 60 deg), K=512, M=64, bbox 84,
@@ -37,6 +44,8 @@ from robosimgs_tpu_torch.utils.meshio import Mesh, save_mesh
 
 BENCH_GAUSSIANS = 100_000
 BENCH_RES = 256
+FEASIBILITY_GAUSSIANS = 3_000_000
+FEASIBILITY_RES = 512
 ROLLOUT_GAUSSIANS = 200_000
 ROLLOUT_STEPS = 8
 ROLLOUT_CAMERAS = [dict(eye=[3.0 + 0.1 * i, 0.4, 1.0], target=[0, 0, 0],
@@ -89,6 +98,21 @@ def bench_scene(device, n: int = BENCH_GAUSSIANS):
     cam = Camera.look_at([4.0, 0.5, 1.2], [0, 0, 0], [0, 0, 1], 60.0,
                          BENCH_RES, BENCH_RES, device=device)
     return g, cam, bench_config()
+
+
+def feasibility_config(tile_capacity: int = 2048) -> RenderConfig:
+    return RenderConfig(tile_size=32, tile_capacity=tile_capacity,
+                        tile_chunk=512, max_tiles_per_gaussian=16,
+                        bbox_tiles_per_gaussian=20)
+
+
+def feasibility_scene(device, n: int = FEASIBILITY_GAUSSIANS):
+    """(Gaussians, camera, RenderConfig) of the feasibility workload."""
+    g = Gaussians.random(torch.Generator().manual_seed(5), n, sh_degree=3,
+                         extent=1.5, device=device)
+    cam = Camera.look_at([4.0, 0.5, 1.2], [0, 0, 0], [0, 0, 1], 60.0,
+                         FEASIBILITY_RES, FEASIBILITY_RES, device=device)
+    return g, cam, feasibility_config()
 
 
 def orbit_views(g: Gaussians, device):

@@ -16,15 +16,17 @@ from robosimgs_tpu.core.camera import Camera as JCamera
 from robosimgs_tpu.core.types import Gaussians as JGaussians
 from robosimgs_tpu.render.binning import bin_and_gather_packed as jbin
 from robosimgs_tpu.render.config import RenderConfig as JConfig
+from robosimgs_tpu.render.gathered import composite_gathered as jgathered
 from robosimgs_tpu.render.pallas_kernels import (composite_bwd_pallas,
                                                 composite_fwd_pallas)
 from robosimgs_tpu.render.project import project as jproject
 
 from robosimgs_tpu_torch.render.config import RenderConfig
 from robosimgs_tpu_torch.render.gathered import composite_gathered
-from robosimgs_tpu_torch.render.kernels import (Composite, composite_bwd,
+from robosimgs_tpu_torch.render.kernels import (BK, MAX_SPLITS, Composite,
+                                                bwd_splits, composite_bwd,
                                                 composite_bwd_plain,
-                                                composite_fwd)
+                                                composite_fwd, split_range)
 from test_torch_composite import COUNTS, P, TILES_X, make_inputs
 
 # test_tiled.py:117-120's tolerances for the hand-derived backward. The
@@ -62,14 +64,20 @@ def blocks(g, cam, kw, absgrad=False):
     return np.array(geom), np.array(feat), np.array(counts)
 
 
-def run_both(geom, feat, counts, tiles_x, kw, dlim=None, n_img=0, seed=0):
-    """(jax (dgeom, dfeat), port (dgeom, dfeat), nblk) from the same
-    inputs, Pallas forward residuals and cotangent: N(0, 1) on the rgb,
-    depth and alpha rows, 0 on rows 5..7 as the losses give."""
-    T = geom.shape[0]
+def cotangent(T, P, seed):
+    """N(0, 1) on the rgb, depth and alpha rows, 0 on rows 5..7 as the
+    losses give."""
     gout = np.random.default_rng(100 + seed).normal(
         size=(T, 8, P)).astype(np.float32)
     gout[:, 5:] = 0.0
+    return gout
+
+
+def run_both(geom, feat, counts, tiles_x, kw, dlim=None, n_img=0, seed=0):
+    """(jax (dgeom, dfeat), port (dgeom, dfeat), nblk) from the same
+    inputs, Pallas forward residuals and cotangent (`cotangent`)."""
+    T = geom.shape[0]
+    gout = cotangent(T, JConfig(**kw).tile_size ** 2, seed)
     has_dlim = dlim is not None
     j = jnp.asarray
     jdlim = j(dlim) if has_dlim else jnp.full((T, P, 1), jnp.inf)
@@ -181,6 +189,88 @@ def test_composite_bwd_matches_pallas_chunked():
     jd, d, nblk = run_both(geom, feat, counts, 2, kw, seed=4)
     assert nblk.max() >= 2
     assert_matches(jd, d)
+
+
+@pytest.mark.parametrize("tile_size", [32, 12])
+def test_composite_bwd_matches_pallas_on_large_and_ragged_tiles(tile_size):
+    """32x32 tiles (the JAX package's 3M-Gaussian config) and ragged
+    12x12 ones (144 pixels, a partial warp), which the card runs through
+    its split kernel: the plain version against the Pallas backward on
+    the pipeline's blocks, some tiles past one 128-splat block."""
+    kw = dict(tile_size=tile_size, tile_capacity=512,
+              max_tiles_per_gaussian=64)
+    g = JGaussians.random(jax.random.PRNGKey(7), 400, sh_degree=1)
+    geom, feat, counts = blocks(g, camera([4.0, 0.3, 0.8], 64, 48), kw)
+    tiles_x = -(-64 // tile_size)
+    jd, d, nblk = run_both(geom, feat, counts, tiles_x, kw, seed=5)
+    assert nblk.max() >= 2
+    assert np.abs(d[0][:, :6]).max() > 1e-2
+    if tile_size <= 16:
+        assert_matches(jd, d)
+        return
+    # The Pallas kernel forms the conic rows 2..4 from tile-local pixel
+    # moments (sum dq x^2 - 2 mx sum dq x + mx^2 sum dq, x up to 31 here),
+    # whose f32 cancellation at 32-px tiles passes these tolerances on a
+    # few slots of these blocks. Those rows are held at the same
+    # tolerances against jax.vjp of the JAX package's gathered compositor
+    # (per-pixel products, as the port sums them) and against the plain
+    # version in float64; every other row against the Pallas kernel.
+    np.testing.assert_allclose(d[0][:, [0, 1, 5]], jd[0][:, [0, 1, 5]],
+                               atol=ATOL, rtol=RTOL, err_msg="dgeom")
+    np.testing.assert_allclose(d[1][:, :4], jd[1][:, :4], atol=ATOL,
+                               rtol=RTOL, err_msg="dfeat")
+    assert (d[0][:, 6:] == 0).all()
+    _, vjp = jax.vjp(jax.jit(lambda gm: jgathered(
+        gm, jnp.asarray(feat), jnp.asarray(counts), tiles_x, JConfig(**kw))),
+        jnp.asarray(geom))
+    want = np.asarray(vjp(jnp.asarray(cotangent(geom.shape[0],
+                                                 tile_size ** 2, 5)))[0])
+    np.testing.assert_allclose(d[0][:, 2:5], want[:, 2:5], atol=ATOL,
+                               rtol=RTOL, err_msg="conic rows")
+    gout = cotangent(geom.shape[0], tile_size ** 2, 5)
+    _, tfin, nb = composite_fwd_pallas(
+        jnp.asarray(geom), jnp.asarray(feat), jnp.asarray(counts),
+        jnp.full((geom.shape[0], tile_size ** 2, 1), jnp.inf), tiles_x=tiles_x,
+        cfg=JConfig(**kw), interpret=True, has_dlim=False)
+    t = torch.from_numpy
+    exact = composite_bwd_plain(
+        t(geom).double(), t(feat).double(), t(counts), None, t(gout).double(),
+        t(np.array(tfin)).double(), t(np.array(nb)), None, tiles_x=tiles_x,
+        cfg=RenderConfig(**kw), has_dlim=False)[0].numpy()
+    np.testing.assert_allclose(d[0][:, 2:5], exact[:, 2:5], atol=ATOL,
+                               rtol=RTOL, err_msg="conic rows, float64")
+
+
+@pytest.mark.parametrize("splits", range(1, MAX_SPLITS + 1))
+def test_split_ranges_cover_every_block_once_in_order(splits):
+    """The split kernel's rule: for any count of processed blocks, the
+    ranges of a tile's blocks, rank by rank, tile [0, nblk) in order."""
+    for nb in range(0, 14464 // BK + 1):
+        ranges = [split_range(nb, r, splits) for r in range(splits)]
+        assert ranges[0][0] == 0 and ranges[-1][1] == nb
+        assert all(lo <= hi for lo, hi in ranges)
+        assert all(a[1] == b[0] for a, b in zip(ranges, ranges[1:]))
+        covered = [i for lo, hi in ranges for i in range(lo, hi)]
+        assert covered == list(range(nb))
+
+
+@pytest.mark.parametrize("T,K,P,want", [
+    (64, 14464, 1024, 4),    # the bench view at 32x32 (recommend_capacities)
+    (256, 2048, 1024, 1),    # the 3M-Gaussian 512x512 config
+    (4, 2048, 1024, 8),      # capped at one cluster of the portable size
+    (4, 384, 144, 3),        # capped at K / BK
+    (4096, 2048, 1024, 1),   # more tiles than the card holds at once
+    (256, 384, 256, 1),      # 16x16 tiles: one block a tile
+    (16, 384, 64, 1),        # 8x8 tiles: whole warps too
+])
+def test_bwd_splits(T, K, P, want):
+    """Blocks per tile from the shapes and the SM count (132 on an H100
+    SXM): the most that keeps T x splits within twice the SMs, unless
+    capped, and one for whole-warp tiles up to 16x16."""
+    splits = bwd_splits(T, K, P, 132)
+    assert splits == want
+    if 1 < splits < min(K // BK, MAX_SPLITS):
+        assert T * splits <= 2 * 132 < T * (splits + 1)
 
 
 @pytest.mark.parametrize("has_dlim", [False, True])

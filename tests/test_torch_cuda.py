@@ -18,7 +18,8 @@ from robosimgs_tpu_torch.core.types import Gaussians
 from robosimgs_tpu_torch.render import rasterize
 from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
 from robosimgs_tpu_torch.render.config import RenderConfig
-from robosimgs_tpu_torch.render.kernels import (BK, LT_GROUP, composite_bwd,
+from robosimgs_tpu_torch.render.kernels import (BK, LT_GROUP, bwd_splits,
+                                                composite_bwd,
                                                 composite_bwd_plain,
                                                 composite_fwd,
                                                 composite_fwd_plain)
@@ -227,6 +228,60 @@ def test_kernels_match_plain_where_work_is_skipped(device, make):
     assert_bwd_agrees(bwd, composite_bwd_plain(geom, feat, counts, None, gout,
                                                tfin, nblk, ltg, **kw))
     assert float(bwd[0][:, :6].abs().max()) > 0.0
+
+
+def _split_case(device, tile_size, has_dlim=False):
+    """A 64x64 view of 20,000 splats on tile_size tiles at K = 2048: at
+    32x32 four tiles, so the backward splits each across 8 blocks.
+    (inputs, kw, splits)."""
+    g, cam = _scene(device, n=20000, w=64, h=64)
+    cfg = RenderConfig(tile_size=tile_size, tile_capacity=2048)
+    with torch.no_grad():
+        geom, feat, counts, _ = bin_and_gather_packed(
+            project(g, cam, cfg), cam.width, cam.height, cfg)
+    T, P = geom.shape[0], tile_size ** 2
+    dlim = None
+    if has_dlim:
+        dlim = (torch.rand((T, P, 1), generator=torch.Generator()
+                           .manual_seed(12)) * 4.0 + 2.0).to(device)
+    kw = dict(tiles_x=num_tiles(64, 64, tile_size)[0], cfg=cfg,
+              has_dlim=has_dlim)
+    out, tfin, nblk, ltg = composite_fwd(geom, feat, counts, dlim, **kw)
+    gout = torch.randn(out.shape, generator=torch.Generator().manual_seed(11))
+    args = (geom, feat, counts, dlim, gout.to(device), tfin, nblk, ltg)
+    splits = bwd_splits(T, geom.shape[2], P, torch.cuda.get_device_properties(
+        device).multi_processor_count)
+    return args, kw, splits
+
+
+@pytest.mark.parametrize("tile_size,has_dlim", [(32, False), (32, True),
+                                                (12, False), (20, True)])
+def test_split_bwd_matches_plain(device, tile_size, has_dlim):
+    """The split kernel (a tile's processed blocks across a cluster of
+    blocks that pass each other their suffix sums) against the plain
+    version: T = 4 at 32x32 and K = 2048, so 8 blocks a tile; ragged
+    12x12 tiles (144 pixels) and 20x20 ones (400)."""
+    args, kw, splits = _split_case(device, tile_size, has_dlim)
+    nblk = args[6]
+    assert splits > 1 and int(nblk.max()) > 1
+    before = composite_bwd.launches
+    got = composite_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    assert composite_bwd.launches == before + 1
+    assert_bwd_agrees(got, composite_bwd_plain(*args, **kw))
+    assert float(got[0][:, :6].abs().max()) > 0.0
+
+
+def test_split_bwd_is_deterministic(device):
+    """Two launches on the same inputs give the same bits (no atomics;
+    the blocks of a tile add each other's sums in a fixed order)."""
+    args, kw, splits = _split_case(device, 32)
+    assert splits > 1
+    first = composite_bwd(*args, **kw)
+    second = composite_bwd(*args, **kw)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
 
 
 def test_bwd_kernel_needs_log_t_groups(device):
