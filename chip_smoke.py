@@ -159,6 +159,25 @@ Phases, each of which raises on a fault (nothing is caught):
                Trainer steps (one launch of each kernel a step, finite
                losses), the step's ms, peak memory and device time by
                operation
+ 14. measure — the unpacked binner (bin_gaussians + gather_tile_features)
+               at the bench width against bin_and_gather_packed with the
+               exact cull off and one tier: equal selection and blocks,
+               one forward launch and a bit-equal render through
+               composite_from_tiles, zero truncation, gradients through
+               Composite within 1e-5, the forward against its plain
+               version on those blocks; tools/profile_stages.py at the
+               bench config and the 3M config (each stage's ms, one
+               train step's device time by where each operation ran);
+               tools/k_equiv.py on the bench scene (K 5120 / 1024 / 512 /
+               768); tools/staged_lossless.py on the 1M 512x512 staged
+               workload (the draw's covers and the capacities sized from
+               them, K 2048 / 1024 and the staged K 384 two-tier 12 each
+               >= 60 dB against the lossless K with zero truncation, the
+               gradient delta and the lossless gradient's transpose time,
+               three timed train steps with peak memory), both kernels
+               against their plain versions at the staged shape and the
+               forward at the lossless K on half its tiles, with times
+               and bounds
 The line before the last lists the kernels; the last line is the result.
 Exits non-zero without a CUDA device.
 """
@@ -969,6 +988,9 @@ def main() -> int:
     multi = multidevice(dev, smi)
     # 13. the JAX package's 3M-Gaussian 512x512 config
     feas = feasibility(dev, smi)
+    # 14. the unpacked binner, profile_stages, k_equiv and the 1M staged
+    # config
+    meas = measure(dev, smi)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
@@ -979,7 +1001,8 @@ def main() -> int:
             err_a, err_b, err_cli, err_skip, roll["max_abs_err"],
             pol["max_abs_err"], left["batch_max_abs_err"],
             left["tile32_fwd_max_abs_err"], multi["fwd_max_abs_err"],
-            feas["fwd_max_abs_err"]),
+            feas["fwd_max_abs_err"], meas["unpacked_max_abs_err"],
+            meas["staged_fwd_max_abs_err"], meas["lossless_fwd_max_abs_err"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "rollout_launches": roll["launches"], "rollout_ms": roll["ms"],
@@ -1009,13 +1032,28 @@ def main() -> int:
         "feasibility_plain_ms": feas["fwd_plain_ms"],
         "feasibility_bound_ms": feas["fwd_bound_ms"],
         "feasibility_bound_by": feas["fwd_bound_by"],
-        "feasibility_max_abs_err": feas["fwd_max_abs_err"]}, {
+        "feasibility_max_abs_err": feas["fwd_max_abs_err"],
+        "unpacked_max_abs_err": meas["unpacked_max_abs_err"],
+        "staged_launches": meas["staged_launches"][0],
+        "staged_ms": meas["staged_fwd_ms"],
+        "staged_plain_ms": meas["staged_fwd_plain_ms"],
+        "staged_bound_ms": meas["staged_fwd_bound_ms"],
+        "staged_bound_by": meas["staged_fwd_bound_by"],
+        "staged_max_abs_err": meas["staged_fwd_max_abs_err"],
+        "lossless_K": meas["lossless_K"],
+        "lossless_ms": meas["lossless_fwd_ms"],
+        "lossless_bound_ms": meas["lossless_fwd_bound_ms"],
+        "lossless_bound_by": meas["lossless_fwd_bound_by"],
+        "lossless_half_ms": meas["lossless_half_ms"],
+        "lossless_half_plain_ms": meas["lossless_half_plain_ms"],
+        "lossless_max_abs_err": meas["lossless_fwd_max_abs_err"]}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "robosimgs_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "robosimgs_tpu/render/pallas_kernels.py:221",
         "launches": launches_train[1], "max_abs_err": max(
             err_bwd, err_32, left["tile32_max_abs_err"],
-            multi["bwd_max_abs_err"], feas["bwd_max_abs_err"]),
+            multi["bwd_max_abs_err"], feas["bwd_max_abs_err"],
+            meas["staged_bwd_max_abs_err"]),
         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by, "library_ms": None,
         "tile32_K": left["tile32_K"], "tile32_ms": left["tile32_ms"],
@@ -1034,7 +1072,13 @@ def main() -> int:
         "feasibility_plain_ms": feas["bwd_plain_ms"],
         "feasibility_bound_ms": feas["bwd_bound_ms"],
         "feasibility_bound_by": feas["bwd_bound_by"],
-        "feasibility_max_abs_err": feas["bwd_max_abs_err"]}]}))
+        "feasibility_max_abs_err": feas["bwd_max_abs_err"],
+        "staged_launches": meas["staged_launches"][1],
+        "staged_ms": meas["staged_bwd_ms"],
+        "staged_plain_ms": meas["staged_bwd_plain_ms"],
+        "staged_bound_ms": meas["staged_bwd_bound_ms"],
+        "staged_bound_by": meas["staged_bwd_bound_by"],
+        "staged_max_abs_err": meas["staged_bwd_max_abs_err"]}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0
@@ -3333,6 +3377,265 @@ def feasibility(dev, smi: str) -> dict:
                 bwd_bound_by=bb_by, bwd_max_abs_err=bwd_err, splits=splits,
                 gate_db=gate_db, step_ms=step_ms, peak_bytes=peak,
                 step_ops=ops)
+
+
+def measure(dev, smi: str) -> dict:
+    """Phase 14: the unpacked binner and the port's measurement tools.
+    (a) bin_gaussians + gather_tile_features at the bench width with the
+    exact cull off and one tier against bin_and_gather_packed: the same
+    live selection, geom and feat, one forward launch and a bit-equal
+    render through composite_from_tiles, zero truncation, per-Gaussian
+    gradients through Composite within 1e-5 of the largest, and the
+    forward kernel against its plain version on those blocks.
+    (b) tools/profile_stages.py at the bench config and at the 3M config.
+    (c) tools/k_equiv.py on the bench scene with the JAX script's K list.
+    (d) tools/staged_lossless.py on the 1M 512x512 staged workload (its
+    gates and truncation asserts), then both kernels against their plain
+    versions at the staged K 384 two-tier shape and the forward at the
+    lossless K on half its tiles, with times and bounds. Returns the
+    numbers of the kernels line."""
+    import dataclasses
+
+    import torch
+
+    from robosimgs_tpu_torch.render.binning import (bin_and_gather_packed,
+                                                    bin_gaussians,
+                                                    gather_tile_features)
+    from robosimgs_tpu_torch.render.kernels import (composite_bwd,
+                                                    composite_bwd_plain,
+                                                    composite_fwd,
+                                                    composite_fwd_plain)
+    from robosimgs_tpu_torch.render.project import project
+    from robosimgs_tpu_torch.render.tiled import (composite_from_tiles,
+                                                  composite_tiled)
+    from robosimgs_tpu_torch.render.tiles import num_tiles
+    from robosimgs_tpu_torch.tools import (k_equiv, profile_stages,
+                                           staged_lossless, workloads)
+    from robosimgs_tpu_torch.tools.workloads import time_ms
+    from robosimgs_tpu_torch.train.losses import photometric_loss
+    from robosimgs_tpu_torch.train.optim import FLOAT_FIELDS
+
+    t14 = time.perf_counter()
+    out = {}
+    # (a) the unpacked binner against the packed one
+    g, cam, cfg = workloads.bench_scene(dev)
+    res = cam.width
+    cfg_a = dataclasses.replace(cfg, exact_tile_cull=False, two_tier_split=0)
+    tx = num_tiles(res, res, cfg_a.tile_size)[0]
+    with torch.no_grad():
+        proj = project(g, cam, cfg_a)
+        sel, counts, st = bin_gaussians(proj, res, res, cfg_a)
+        geom, feat = gather_tile_features(proj, sel, counts, cfg_a)
+        pgeom, pfeat, pcounts, pst, psel = bin_and_gather_packed(
+            proj, res, res, cfg_a, return_sel=True)
+        live = (torch.arange(sel.shape[1], device=dev)[None, :]
+                < counts[:, None])
+        same = (torch.equal(counts, pcounts)
+                and torch.equal(sel[live], psel[live])
+                and torch.equal(geom.transpose(1, 2)[live],
+                                pgeom.transpose(1, 2)[live])
+                and torch.equal(feat.transpose(1, 2)[live],
+                                pfeat.transpose(1, 2)[live])
+                and all(int(getattr(st, f.name)) == int(getattr(pst, f.name))
+                        for f in dataclasses.fields(st)))
+        composite_fwd.launches = 0
+        img = composite_from_tiles(geom, feat, counts, res, res, cfg_a)
+        torch.cuda.synchronize()
+        launches_a = composite_fwd.launches
+        pimg = composite_from_tiles(pgeom, pfeat, pcounts, res, res, cfg_a)
+        render_equal = all(torch.equal(img[k], pimg[k]) for k in img)
+        kw = dict(tiles_x=tx, cfg=cfg_a, has_dlim=False)
+        fwd_err = compare_fwd(
+            composite_fwd(geom, feat, counts, None, **kw),
+            composite_fwd_plain(geom, feat, counts, None, **kw),
+            "unpacked blocks", (geom, counts, None, kw))[0]
+    log(f"[14 measure] (a) unpacked binner at {res}x{res} K="
+        f"{cfg_a.tile_capacity} M={cfg_a.max_tiles_per_gaussian} (exact "
+        f"cull off, one tier): live {int(live.sum())} entries, selection, "
+        f"geom, feat and BinStats equal to the packed route: {same}; "
+        f"truncated {int(st.truncated_gaussians)}, overflowed tiles "
+        f"{int(st.overflowed_tiles)}; composite_from_tiles launches "
+        f"{launches_a}, render bit-equal to the packed route: {render_equal}")
+    if not same or not render_equal or launches_a != 1 \
+            or int(st.truncated_gaussians) != 0:
+        raise AssertionError("the unpacked binner is not the packed one")
+    del proj, sel, geom, feat, pgeom, pfeat, psel, img, pimg, live
+    target = torch.zeros((res, res, 3), device=dev)
+    grads = {}
+    for route in ("unpacked", "packed"):
+        params = {k: getattr(g, k).detach().requires_grad_()
+                  for k in FLOAT_FIELDS}
+        proj = project(g.replace(**params), cam, cfg_a)
+        if route == "unpacked":
+            sel, counts, _ = bin_gaussians(proj, res, res, cfg_a)
+            rgb = composite_from_tiles(*gather_tile_features(
+                proj, sel, counts, cfg_a), counts, res, res, cfg_a)["rgb"]
+        else:
+            rgb = composite_tiled(proj, res, res, cfg_a)["rgb"]
+        composite_bwd.launches = 0
+        grads[route] = dict(zip(params, torch.autograd.grad(
+            photometric_loss(rgb, target), list(params.values()))))
+        if composite_bwd.launches != 1:
+            raise AssertionError(f"{route}: {composite_bwd.launches} "
+                                 f"backward launches")
+    # against the largest entry over every field: the quaternions'
+    # gradients of the isotropic bench splats sit at rounding noise
+    grad_rel = max(float((grads["unpacked"][k] - grads["packed"][k])
+                         .abs().max()) for k in FLOAT_FIELDS) / max(
+        float(v.abs().max()) for v in grads["packed"].values())
+    log(f"  (a) gradients through one Composite backward, unpacked against "
+        f"packed: max |difference| over every field {grad_rel:.3e} of the "
+        f"largest gradient")
+    if not grad_rel <= 1e-5:
+        raise AssertionError("the unpacked route's gradients differ")
+    del grads, proj, rgb
+    out.update(unpacked_max_abs_err=fwd_err, unpacked_grad_rel=grad_rel)
+
+    # (b) per-stage latency at the bench config and at the 3M config
+    for name, scene, pcfg in (
+            ("bench", lambda: (g, cam),
+             profile_stages.bench_profile_config()),
+            ("feasibility", lambda: workloads.feasibility_scene(dev)[:2],
+             workloads.feasibility_config())):
+        gp, camp = scene()
+        prof = profile_stages.profile_stages(gp, camp, pcfg, reps=30)
+        del gp
+        log(f"  (b) profile_stages {name}: {prof['n']} Gaussians at "
+            f"{prof['res'][0]}x{prof['res'][1]}, tile {prof['tile_size']}, "
+            f"K={prof['K']} M={prof['M']} bbox {prof['bbox']} two-tier "
+            f"{prof['two_tier']}, T={prof['T']} ({prof['timer']}, mean of "
+            f"{prof['reps']}; {smi})")
+        for stage, ms in prof["stages"].items():
+            log(f"    {stage:24s} {ms:9.4f} ms")
+        log(f"    one profiled train step: {prof['step_ops_total_ms']:.4f} ms "
+            f"of {prof['step_ops_time']} time, "
+            f"{prof['step_ops_attributed_ms']:.4f} ms of it over "
+            f"{prof['step_ops_launches']:.0f} launches by where the "
+            f"operation that launched it ran:")
+        for where, op, n_launch, ms in prof["step_ops"]:
+            log(f"    {ms:9.4f} ms x{n_launch:<5.0f} {op[:28]:28s} {where}")
+        log("    by operation: " + ", ".join(
+            f"{op} x{n:.0f} {ms:.4f} ms"
+            for op, n, ms in prof["step_ops_by_op"][:12]))
+        out[f"profile_{name}"] = prof
+
+    # (c) capacity equivalence on the bench scene
+    keq = k_equiv.k_equiv(g, cam)
+    for r in keq["ks"]:
+        extra = ("" if "psnr" not in r else
+                 f", {r['psnr']:.2f} dB against K={keq['k_ref']}, max |grad "
+                 f"difference| {r['max_grad_diff']:.3e} of scale "
+                 f"{r['grad_scale']:.3e}, step {r['step_ms']:.4f} ms, "
+                 f"{r['gaussians_per_s']:.1f} Gaussians/s")
+        log(f"  (c) k_equiv K={r['K']} (M {keq['M']}): truncated "
+            f"{r['truncated']}, overflowed tiles {r['overflowed_tiles']}, "
+            f"max tile count {r['max_tile_count']}{extra}")
+    out["k_equiv"] = keq
+    del g
+
+    # (d) the lossless 1M 512x512 staged config
+    g, cam = workloads.staged_scene(dev)
+    res = cam.width
+    composite_fwd.launches = composite_bwd.launches = 0
+    log(f"  (d) staged_lossless ({smi}):")
+    stg = staged_lossless.staged_lossless(g, cam,
+                                          log=lambda line: log(f"    {line}"))
+    torch.cuda.synchronize()
+    launches = (composite_fwd.launches, composite_bwd.launches)
+    log(f"    launches over the tool's run: fwd {launches[0]} bwd "
+        f"{launches[1]}")
+    if min(launches) < 1:
+        raise AssertionError("the staged run launched no kernel")
+    cfgs = stg.pop("configs")
+    out.update(staged=stg, staged_launches=launches)
+    # both kernels against their plain versions at the staged K two-tier
+    cfg_s = cfgs[stg["grad_check"]["staged"]]
+    with torch.no_grad():
+        geom, feat, counts, st = bin_and_gather_packed(
+            project(g, cam, cfg_s), res, res, cfg_s)
+        tx = num_tiles(res, res, cfg_s.tile_size)[0]
+        kw = dict(tiles_x=tx, cfg=cfg_s, has_dlim=False)
+        fwd = composite_fwd(geom, feat, counts, None, **kw)
+        torch.cuda.synchronize()
+        log(f"    {stg['grad_check']['staged']}: T={geom.shape[0]} K="
+            f"{geom.shape[2]}, truncated {int(st.truncated_gaussians)}; "
+            f"{nblk_histogram(fwd[2])}")
+        f_err = compare_fwd(fwd, composite_fwd_plain(
+            geom, feat, counts, None, **kw), "staged K two-tier",
+            (geom, counts, None, kw))[0]
+        gout = torch.randn(fwd[0].shape, generator=torch.Generator()
+                           .manual_seed(14)).to(dev)
+        args = (geom, feat, counts, None, gout, *fwd[1:])
+        b_err = compare_bwd(composite_bwd(*args, **kw),
+                            composite_bwd_plain(*args, **kw),
+                            "bwd staged K two-tier")
+        f_ms = time_ms(lambda: composite_fwd(geom, feat, counts, None, **kw),
+                       reps=100)
+        f_plain = time_ms(lambda: composite_fwd_plain(geom, feat, counts,
+                                                      None, **kw),
+                          reps=2, warmup=1)
+        b_ms = time_ms(lambda: composite_bwd(*args, **kw), reps=100)
+        b_plain = time_ms(lambda: composite_bwd_plain(*args, **kw), reps=2,
+                          warmup=1)
+        fb_ms, fb_by, fb_detail, work = fwd_bound(geom, counts, fwd[2], None,
+                                                  tx, cfg_s)
+        bb_ms, bb_by, bb_detail = bwd_bound(geom, counts, fwd[2], None, tx,
+                                            cfg_s, work)
+    log(f"    composite_fwd {f_ms:.4f} ms, plain {f_plain:.4f} ms; bound "
+        f"{fb_ms:.6f} ms ({fb_detail}), share {fb_ms / f_ms:.4f}; library "
+        f"call: none ({smi})")
+    log(f"    composite_bwd {b_ms:.4f} ms, plain {b_plain:.4f} ms; bound "
+        f"{bb_ms:.6f} ms ({bb_detail}), share {bb_ms / b_ms:.4f}; library "
+        f"call: none ({smi})")
+    out.update(staged_fwd_ms=f_ms, staged_fwd_plain_ms=f_plain,
+               staged_fwd_bound_ms=fb_ms, staged_fwd_bound_by=fb_by,
+               staged_fwd_max_abs_err=f_err, staged_bwd_ms=b_ms,
+               staged_bwd_plain_ms=b_plain, staged_bwd_bound_ms=bb_ms,
+               staged_bwd_bound_by=bb_by, staged_bwd_max_abs_err=b_err)
+    del geom, feat, counts, fwd, gout, args
+    # the forward at the lossless K: timed and bounded on every tile, held
+    # against its plain version on the middle half of the tile rows (their
+    # splats' y means moved up by the rows above, so the rows sit at the
+    # top of the image the kernel sees)
+    cfg_l = cfgs[f"K{stg['sized']['K_lossless']}"]
+    with torch.no_grad():
+        geom, feat, counts, _ = bin_and_gather_packed(
+            project(g, cam, cfg_l), res, res, cfg_l)
+        tx, ty = num_tiles(res, res, cfg_l.tile_size)
+        kw = dict(tiles_x=tx, cfg=cfg_l, has_dlim=False)
+        fwd = composite_fwd(geom, feat, counts, None, **kw)
+        torch.cuda.synchronize()
+        l_ms = time_ms(lambda: composite_fwd(geom, feat, counts, None, **kw),
+                       reps=20)
+        lb_ms, lb_by, lb_detail, _ = fwd_bound(geom, counts, fwd[2], None,
+                                               tx, cfg_l)
+        nblk_l = nblk_histogram(fwd[2])
+        r0, r1 = ty // 4, ty - ty // 4
+        sub = slice(r0 * tx, r1 * tx)
+        geom_h = geom[sub].clone()
+        geom_h[:, 1] -= float(r0 * cfg_l.tile_size)
+        feat_h, counts_h = feat[sub].contiguous(), counts[sub].contiguous()
+        del geom, feat, counts, fwd
+        got = composite_fwd(geom_h, feat_h, counts_h, None, **kw)
+        torch.cuda.synchronize()
+        l_err = compare_fwd(got, composite_fwd_plain(
+            geom_h, feat_h, counts_h, None, **kw), "lossless K, half the "
+            "tiles", (geom_h, counts_h, None, kw))[0]
+        lh_ms = time_ms(lambda: composite_fwd(geom_h, feat_h, counts_h, None,
+                                              **kw), reps=20)
+        lh_plain = time_ms(lambda: composite_fwd_plain(
+            geom_h, feat_h, counts_h, None, **kw), reps=1, warmup=0)
+    log(f"    lossless K={cfg_l.tile_capacity}: {nblk_l}; composite_fwd "
+        f"{l_ms:.4f} ms; bound {lb_ms:.6f} ms ({lb_detail}), share "
+        f"{lb_ms / l_ms:.4f}; on tile rows {r0}..{r1 - 1} "
+        f"({geom_h.shape[0]} tiles) {lh_ms:.4f} ms, plain {lh_plain:.4f} ms;"
+        f" library call: none ({smi})")
+    out.update(lossless_K=cfg_l.tile_capacity, lossless_fwd_ms=l_ms,
+               lossless_fwd_bound_ms=lb_ms, lossless_fwd_bound_by=lb_by,
+               lossless_half_ms=lh_ms, lossless_half_plain_ms=lh_plain,
+               lossless_fwd_max_abs_err=l_err)
+    log(f"  phase 14 {time.perf_counter() - t14:.1f} s")
+    return out
 
 
 if __name__ == "__main__":

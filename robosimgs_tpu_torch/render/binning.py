@@ -18,6 +18,10 @@ stable descending sort (lowest index first among equal covers).
 `bin_rects` is the generic binner for any rect-bounded primitive (the
 mesh rasterizer's triangles), and `per_gaussian_cover` counts the tiles
 each splat reaches after the exact cull (capacity autotuning).
+`bin_gaussians` + `gather_tile_features` are the JAX package's unpacked
+binner (bbox tiles only, one take per feature row), which
+`render/tiled.py::composite_from_tiles` composites as it does the packed
+blocks.
 """
 
 from __future__ import annotations
@@ -315,3 +319,65 @@ def bin_and_gather_packed(proj: Projected, width: int, height: int,
     if return_sel:
         return geom, feat, counts, stats, sel
     return geom, feat, counts, stats
+
+
+def bin_gaussians(proj: Projected, width: int, height: int,
+                  cfg: RenderConfig):
+    """The unpacked binner: (sel (T, K) int64 per-tile Gaussian indices,
+    front to back, 0 past the count; counts (T,) int32; stats).
+
+    Every Gaussian enumerates the tiles of its radius bbox (at most
+    max_tiles_per_gaussian, no exact cull and no two-tier split) and
+    `bin_rects` orders each tile by the global depth rank of one stable
+    argsort. `gather_tile_features` turns sel into the kernels' blocks."""
+    tiles_x, tiles_y = num_tiles(width, height, cfg.tile_size)
+    n = proj.means2d.shape[0]
+    tx0, ty0, tx1, ty1 = tile_bbox(proj.means2d.detach(),
+                                   proj.radii.detach(), tiles_x, tiles_y,
+                                   cfg.tile_size)
+    inf = torch.full_like(proj.depths, math.inf)
+    order = torch.argsort(torch.where(proj.valid, proj.depths.detach(), inf),
+                          stable=True)
+    rank = torch.empty_like(order).scatter_(
+        0, order, torch.arange(n, device=order.device))
+    return bin_rects(tx0, ty0, tx1, ty1, rank, proj.valid, tiles_x, tiles_y,
+                     cfg.max_tiles_per_gaussian, cfg.tile_capacity)
+
+
+def gather_tile_features(proj: Projected, sel: torch.Tensor,
+                         counts: torch.Tensor, cfg: RenderConfig):
+    """Per-tile blocks for the composite kernels from `bin_gaussians`'
+    selection, one row take per field:
+
+      geom (T, 8, K): [mx, my, conic_a, conic_b, conic_c, opacity,
+                       depth (no gradient), 0]
+      feat (T, 8, K): [r, g, b, depth, 1, nx, ny, nz]
+
+    Padding entries (past counts) get opacity 0, inert in the forward
+    and the backward. The normal rows are zeros without normals; row 7
+    stays 0 when the absgrad probe owns it (as in `pack16`). Gradients
+    reach proj.* through autograd's transposes of the takes."""
+    K = sel.shape[1]
+    mask = torch.arange(K, device=sel.device)[None, :] < counts[:, None]
+    mx = proj.means2d[sel, 0]
+    my = proj.means2d[sel, 1]
+    ca = proj.conics[sel, 0]
+    cb = proj.conics[sel, 1]
+    cc = proj.conics[sel, 2]
+    zeros = torch.zeros_like(mx)
+    op = torch.where(mask, proj.opacities[sel], zeros)
+    gd = proj.depths.detach()[sel]
+    geom = torch.stack([mx, my, ca, cb, cc, op, gd, zeros], dim=1)
+
+    r = proj.colors[sel, 0]
+    g = proj.colors[sel, 1]
+    b = proj.colors[sel, 2]
+    d = proj.depths[sel]
+    ones = torch.ones_like(r)
+    n5 = proj.normals[sel, 0] if proj.normals is not None else zeros
+    n6 = proj.normals[sel, 1] if proj.normals is not None else zeros
+    f7 = zeros
+    if proj.normals is not None and proj.abs_probe is None:
+        f7 = proj.normals[sel, 2]
+    feat = torch.stack([r, g, b, d, ones, n5, n6, f7], dim=1)
+    return geom, feat

@@ -100,7 +100,9 @@ def composite_from_tiles(
 ) -> Dict[str, torch.Tensor]:
     """Composite pre-gathered per-tile feature blocks into an image.
 
-    composite_tiled is bin_and_gather_packed + this. normal_mode
+    composite_tiled is bin_and_gather_packed + this; the unpacked
+    binner's blocks (binning.bin_gaussians + gather_tile_features) come
+    here too. normal_mode
     ("none"/"xyz"/"xy", see _normal_mode): adds a "normal" unit-vector
     map to the output when feat rows carry splat normals.
     """

@@ -14,6 +14,15 @@ tiles overflow the JAX binner's packed 31-bit sort key at 3M), K=2048
 (gated against K=4096), tile_chunk 512, M=16, bbox 20, single tier,
 drawn from torch.Generator seed 5.
 
+The staged workload is the JAX package's lossless 1M-Gaussian staged
+config, scripts/staged_lossless.py and bench.py's `_staged` (bench.py:
+210-300): 1M random Gaussians, SH degree 3, extent 1.5, 512x512 from
+the bench camera, 16-px tiles, M=24 over a 28-tile bbox, K=384 with a
+two-tier split of 12 gated against the lossless K=22,016, drawn from
+torch.Generator seed 1. Those constants were measured on the JAX
+package's jax.random draw; tools/staged_lossless.py measures this draw's
+covers and demand first and keeps them where they fit.
+
 The rollout workload has the statistics of bench.py's rollout config
 (200k random Gaussians, SH degree 2, extent 1.5, four 640x480 cameras at
 look_at([3.0 + 0.1 i, 0.4, 1.0] -> 0, 60 deg), K=512, M=64, bbox 84,
@@ -32,6 +41,7 @@ import dataclasses
 import json
 import math
 import os
+import time
 
 import numpy as np
 import torch
@@ -46,6 +56,17 @@ BENCH_GAUSSIANS = 100_000
 BENCH_RES = 256
 FEASIBILITY_GAUSSIANS = 3_000_000
 FEASIBILITY_RES = 512
+STAGED_GAUSSIANS = 1_000_000
+STAGED_RES = 512
+# the JAX package's constants (scripts/staged_lossless.py:38-40): M and
+# bbox at or above its draw's max survivor / bbox cover (22 / 25), the
+# lossless K at or above its max per-tile demand (21,626), rounded up
+# to 512
+STAGED_M = 24
+STAGED_BBOX = 28
+STAGED_K_LOSSLESS = 22_016
+STAGED_K = 384
+STAGED_SPLIT = 12
 ROLLOUT_GAUSSIANS = 200_000
 ROLLOUT_STEPS = 8
 ROLLOUT_CAMERAS = [dict(eye=[3.0 + 0.1 * i, 0.4, 1.0], target=[0, 0, 0],
@@ -113,6 +134,26 @@ def feasibility_scene(device, n: int = FEASIBILITY_GAUSSIANS):
     cam = Camera.look_at([4.0, 0.5, 1.2], [0, 0, 0], [0, 0, 1], 60.0,
                          FEASIBILITY_RES, FEASIBILITY_RES, device=device)
     return g, cam, feasibility_config()
+
+
+def staged_config(k: int = STAGED_K, split: int = 0, spill_frac: float = 0.0,
+                  m: int = STAGED_M, bbox: int = STAGED_BBOX) -> RenderConfig:
+    """The staged workload's RenderConfig at capacity k: tile_chunk 512
+    where it divides k (else one chunk), M over a bbox enumeration, and
+    a two-tier split with its spill fraction (0 = one tier)."""
+    return RenderConfig(tile_capacity=k, tile_chunk=512 if k % 512 == 0 else 0,
+                        max_tiles_per_gaussian=m, bbox_tiles_per_gaussian=bbox,
+                        two_tier_split=split, two_tier_spill_frac=spill_frac)
+
+
+def staged_scene(device, n: int = STAGED_GAUSSIANS, res: int = STAGED_RES):
+    """(Gaussians, camera) of the staged workload; its RenderConfig is
+    `staged_config`, sized to the draw by tools/staged_lossless.py."""
+    g = Gaussians.random(torch.Generator().manual_seed(1), n, sh_degree=3,
+                         extent=1.5, device=device)
+    cam = Camera.look_at([4.0, 0.5, 1.2], [0, 0, 0], [0, 0, 1], 60.0, res,
+                         res, device=device)
+    return g, cam
 
 
 def orbit_views(g: Gaussians, device):
@@ -249,6 +290,25 @@ def write_rollout_inputs(directory: str, model, steps: int = ROLLOUT_STEPS):
     with open(cams, "w") as fh:
         json.dump(ROLLOUT_CAMERAS, fh)
     return traj, cams
+
+
+def timer(device):
+    """(time_ms on a CUDA device, host_ms elsewhere; the timer's name for
+    a result to carry beside its numbers)."""
+    if torch.device(device).type == "cuda":
+        return time_ms, "cuda events"
+    return host_ms, "host clock"
+
+
+def host_ms(fn, reps: int, warmup: int = 3) -> float:
+    """Mean ms of fn over reps calls by the host's clock, after warmup
+    calls: for runs on the CPU, where no device clock exists."""
+    for _ in range(warmup):
+        fn()
+    t0 = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    return (time.perf_counter() - t0) * 1e3 / reps
 
 
 def time_ms(fn, reps: int, warmup: int = 3) -> float:

@@ -13,7 +13,8 @@ then a vertical one, each rounded and clipped to uint8 (a pass is
 skipped when its axis keeps its size). `read_png_rgb` reads
 non-interlaced 8-bit PNGs of every colour type and row filter (what
 cli/render.py's `write_png` and Pillow write) as Pillow's
-`convert("RGB")` does, in numpy and zlib alone, so that both run where
+`convert("RGB")` does, and `read_png_array` as np.asarray(Image.open)
+does (alpha kept), in numpy and zlib alone, so that they run where
 Pillow is not installed.
 """
 
@@ -94,6 +95,7 @@ def resize_bicubic(img: np.ndarray, width: int, height: int) -> np.ndarray:
 # channels a pixel carries at bit depth 8, by PNG colour type: grey,
 # RGB, palette index, grey + alpha, RGBA
 _CHANNELS = {0: 1, 2: 3, 3: 1, 4: 2, 6: 4}
+PNG_SIGNATURE = b"\x89PNG\r\n\x1a\n"
 
 
 def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
@@ -135,15 +137,14 @@ def _unfilter(raw: np.ndarray, bpp: int) -> np.ndarray:
     return out
 
 
-def read_png_rgb(path: str) -> np.ndarray:
-    """(H, W, 3) uint8 pixels of a non-interlaced 8-bit PNG of any colour
-    type (grey, RGB, palette, grey + alpha, RGBA) and any row filters,
-    as Pillow's Image.open(path).convert("RGB") gives them: grey is
-    replicated, alpha dropped, palette entries looked up. Raises
-    ValueError on any other PNG (16-bit, bit depth below 8, interlaced)."""
+def _decode_png(path: str):
+    """(px (H, W, channels) uint8, colour type, palette (n, 3) uint8 or
+    None) of a non-interlaced 8-bit PNG, its rows unfiltered; palette
+    PNGs give their indices. Raises ValueError on any other PNG (16-bit,
+    bit depth below 8, interlaced)."""
     with open(path, "rb") as f:
         data = f.read()
-    if data[:8] != b"\x89PNG\r\n\x1a\n":
+    if data[:8] != PNG_SIGNATURE:
         raise ValueError(f"{path}: not a PNG")
     pos, idat, header, palette = 8, [], None, None
     while pos < len(data):
@@ -169,6 +170,16 @@ def read_png_rgb(path: str) -> np.ndarray:
     raw = np.frombuffer(zlib.decompress(b"".join(idat)), np.uint8)
     px = _unfilter(raw[:h * (1 + w * ch)].reshape(h, 1 + w * ch),
                    ch).reshape(h, w, ch)
+    return px, color, palette
+
+
+def read_png_rgb(path: str) -> np.ndarray:
+    """(H, W, 3) uint8 pixels of a non-interlaced 8-bit PNG of any colour
+    type (grey, RGB, palette, grey + alpha, RGBA) and any row filters,
+    as Pillow's Image.open(path).convert("RGB") gives them: grey is
+    replicated, alpha dropped, palette entries looked up. Raises
+    ValueError on any other PNG (16-bit, bit depth below 8, interlaced)."""
+    px, color, palette = _decode_png(path)
     if color == 3:
         if palette is None:
             raise ValueError(f"{path}: palette PNG without a PLTE chunk")
@@ -176,9 +187,19 @@ def read_png_rgb(path: str) -> np.ndarray:
         lut = np.zeros((256, 3), np.uint8)
         lut[:len(palette)] = palette[:256]
         return lut[px[..., 0]]
-    if ch <= 2:                                   # grey, grey + alpha
+    if px.shape[2] <= 2:                          # grey, grey + alpha
         return np.repeat(px[..., :1], 3, axis=2)
     return np.ascontiguousarray(px[..., :3])      # RGB, RGBA
+
+
+def read_png_array(path: str) -> np.ndarray:
+    """The uint8 array np.asarray(Image.open(path)) gives for the same
+    PNG, alpha kept: (H, W) for grey and for palette PNGs (the palette
+    indices, not their colours), (H, W, 2) grey + alpha, (H, W, 3) RGB,
+    (H, W, 4) RGBA. The same PNGs as `read_png_rgb`; raises ValueError
+    on any other."""
+    px, _, _ = _decode_png(path)
+    return px[..., 0] if px.shape[2] == 1 else px
 
 
 def _triangle_weights(in_size: int, out_size: int) -> np.ndarray:

@@ -1,6 +1,6 @@
 """The CUDA compositing kernels against their plain torch versions, one
-train step through them, and the diffusion policy's forward and train
-step, on the card.
+train step through them, the unpacked binner against the packed one,
+and the diffusion policy's forward and train step, on the card.
 
 Marked `cuda`; every test skips without a CUDA device (decided in the
 fixture, never at import). On a machine with an H100, nvcc and no JAX:
@@ -391,6 +391,45 @@ def test_batched_composite_launches_the_forward_once(device):
     torch.cuda.synchronize()
     assert composite_bwd.launches == b0 + 1
     assert float(params.grad.abs().max()) > 0.0
+
+
+def test_unpacked_binner_equals_packed_on_card(device):
+    """chip_smoke phase 14a: at the bench width with the exact cull off
+    and one tier, bin_gaussians + gather_tile_features select what
+    bin_and_gather_packed selects and gather the same live blocks, with
+    no truncated Gaussian; composite_from_tiles launches the forward once
+    and renders them bit for bit as it renders the packed blocks."""
+    from robosimgs_tpu_torch.render.binning import (bin_gaussians,
+                                                    gather_tile_features)
+    from robosimgs_tpu_torch.render.tiled import composite_from_tiles
+    from robosimgs_tpu_torch.tools.workloads import bench_scene
+    g, cam, cfg = bench_scene(device)
+    cfg = dataclasses.replace(cfg, exact_tile_cull=False, two_tier_split=0)
+    W, H = cam.width, cam.height
+    with torch.no_grad():
+        proj = project(g, cam, cfg)
+        sel, counts, st = bin_gaussians(proj, W, H, cfg)
+        geom, feat = gather_tile_features(proj, sel, counts, cfg)
+        pgeom, pfeat, pcounts, pst, psel = bin_and_gather_packed(
+            proj, W, H, cfg, return_sel=True)
+        live = torch.arange(sel.shape[1], device=device)[None, :] \
+            < counts[:, None]
+        assert torch.equal(counts, pcounts)
+        assert torch.equal(sel[live], psel[live])
+        assert torch.equal(geom.transpose(1, 2)[live],
+                           pgeom.transpose(1, 2)[live])
+        assert torch.equal(feat.transpose(1, 2)[live],
+                           pfeat.transpose(1, 2)[live])
+        for f in dataclasses.fields(st):
+            assert int(getattr(st, f.name)) == int(getattr(pst, f.name))
+        assert int(st.truncated_gaussians) == 0
+        f0 = composite_fwd.launches
+        img = composite_from_tiles(geom, feat, counts, W, H, cfg)
+        torch.cuda.synchronize()
+        assert composite_fwd.launches == f0 + 1
+        pimg = composite_from_tiles(pgeom, pfeat, pcounts, W, H, cfg)
+    for k in img:
+        assert torch.equal(img[k], pimg[k]), k
 
 
 def _box_meshes(device, n=2):
