@@ -14,7 +14,8 @@ Phases, each of which raises on a fault (nothing is caught):
                with absgrad; both on a saturated stack (256 near-opaque
                splats on one corner of four tiles) and on a sparse view
                (60 splats over 256x256), where the backward skips work;
-               the forward on 32x32 tiles (its 1024-thread instance);
+               the forward on 32x32 tiles (its cluster instance, four
+               blocks a tile);
                the backward on 32x32 tiles (its split kernel) on
                those residuals and at the bench K=384 (T=64) with and
                without a depth limit, and on ragged 12x12 tiles;
@@ -129,6 +130,10 @@ Phases, each of which raises on a fault (nothing is caught):
                the nblk distribution, both kernels against their plain
                versions (the backward's split kernel without and with a
                depth limit and with absgrad, two launches bit-equal),
+               the forward's cluster instance bit-equal to the forward
+               on each tile's 16x16 quadrants and to its own walk of
+               every slot (without and with a depth limit), the pairs
+               its footprint test skips (the kernel's count),
                their times and bounds, Trainer steps there, the same
                steps as a CUDA graph bit-equal to them, the step's device
                time by operation, and a small scene's gradients on the
@@ -155,7 +160,9 @@ Phases, each of which raises on a fault (nothing is caught):
                Gaussians, SH 3, 512x512, 32-px tiles, K=2048, M=16, bbox
                20): K=2048 against K=4096 above 60 dB, no truncated
                Gaussian, both kernels against their plain versions with
-               their times and bounds and the nblk distribution, 5
+               their times and bounds and the nblk distribution, the
+               forward bit-equal to the forward on 16x16 quadrants and
+               to its walk of every slot, the pairs it skips, 5
                Trainer steps (one launch of each kernel a step, finite
                losses), the step's ms, peak memory and device time by
                operation
@@ -345,6 +352,37 @@ def compare_bwd(got, want, tag):
     return max_err
 
 
+def quadrant_check(geom, feat, counts, dlim, full, kw, tag) -> dict:
+    """The forward on tiles over 16x16 (its cluster instance; `full` its
+    outputs) against the forward on each tile's quadrants
+    (tools/quadrants.py): out on every pixel, log_t_final where a
+    quadrant's nblk is its tile's and log_t_groups on the batches both
+    processed, each 0.0 apart, and each tile's nblk its quadrants'
+    largest; then against the cluster instance walking every slot
+    (skip "none"), every output 0.0 apart. Returns quadrant_diffs'
+    numbers."""
+    from robosimgs_tpu_torch.render.kernels import composite_fwd
+    from robosimgs_tpu_torch.tools.quadrants import (forward_diffs,
+                                                     quadrant_blocks,
+                                                     quadrant_diffs)
+    *half_in, kw_half = quadrant_blocks(geom, feat, counts, dlim, **kw)
+    half = composite_fwd(*half_in, **kw_half, skip="none")
+    d = quadrant_diffs(full, half, **kw)
+    every = forward_diffs(full, composite_fwd(geom, feat, counts, dlim, **kw,
+                                              skip="none"))
+    log(f"  {tag}: against {kw_half['cfg'].tile_size}x"
+        f"{kw_half['cfg'].tile_size} quadrants: max|out diff| {d['out']}, "
+        f"log_t_final {d['log_t_final']} ({d['tiles_equal']} of "
+        f"{half[2].numel()} quadrants at their tile's nblk), log_t_groups "
+        f"{d['log_t_groups']}; tiles whose nblk is not their quadrants' "
+        f"largest: {d['nblk_over']}; against every slot walked: {every}")
+    if d["nblk_over"] or d["out"] or d["log_t_final"] or d["log_t_groups"]:
+        raise AssertionError(f"{tag}: the forward differs from its quadrants")
+    if any(every.values()):
+        raise AssertionError(f"{tag}: the skip changes the forward's bits")
+    return d
+
+
 def gate_flips(geom, counts, nblk, dlim, tiles_x, cfg, n_tiles_per_image=0):
     """Pixels whose weight gate T (1 - alpha) >= 1e-4 a linear T (a
     running product, as the forward kernel keeps it) and a log T (a
@@ -410,6 +448,55 @@ def pair_work(geom, counts, nblk, dlim, tiles_x, cfg, n_tiles_per_image=0):
         live += int(alive.sum())
         live_kept += int((alive & keep).sum())
     return int(slots.sum()) * P, kept, weighted, live, live_kept
+
+
+def skipped_pairs(geom, feat, counts, tiles_x, cfg, n_tiles_per_image=0):
+    """The (pixel, splat) pairs of the processed blocks that the forward
+    kernel skips by its footprint test, as it counts them itself (one
+    more launch, with a pair counter, at the grain the wrapper picks):
+    {"skipped", "processed" (fwd_bound's evaluated count, which the
+    kernel's own must equal), "grain", "mirror" (the pairs that
+    render/kernels.py::footprint_misses, the test in torch, predicts the
+    kernel skips; logged beside the kernel's count, nothing rests on it)}."""
+    import torch
+    from robosimgs_tpu_torch.render.kernels import (composite_fwd,
+                                                    footprint_misses,
+                                                    fwd_skip_grain,
+                                                    fwd_skip_groups)
+    T, _, K = geom.shape
+    grain = fwd_skip_grain(T, cfg.tile_size, torch.cuda.get_device_properties(
+        geom.device).multi_processor_count)
+    pairs = torch.zeros(2, dtype=torch.int64, device=geom.device)
+    nblk = composite_fwd(geom, feat, counts, None, tiles_x=tiles_x, cfg=cfg,
+                         n_tiles_per_image=n_tiles_per_image, has_dlim=False,
+                         pairs=pairs)[2]
+    walked, processed = (int(v) for v in pairs.cpu())
+    slots = torch.minimum(nblk.long() * BK, counts.long().clamp(0, K))
+    if processed != int(slots.sum()) * cfg.tile_size ** 2:
+        raise AssertionError(f"the forward counted {processed} processed "
+                             f"pairs, its blocks hold "
+                             f"{int(slots.sum()) * cfg.tile_size ** 2}")
+    size = torch.tensor([b - a for a, b in fwd_skip_groups(cfg.tile_size,
+                                                             grain)],
+                        device=geom.device)
+    t_img = torch.arange(T, device=geom.device) % (n_tiles_per_image or T)
+    mirror = 0
+    for s in range(0, T, 16):
+        e = min(s + 16, T)
+        m = footprint_misses(geom[s:e], tiles_x=tiles_x, cfg=cfg,
+                             grain=grain, t_idx=t_img[s:e])
+        done = torch.arange(K, device=geom.device)[None, :] < slots[s:e, None]
+        mirror += int(((m & done[:, None, :]).sum(dim=2) * size).sum())
+    return dict(skipped=processed - walked, processed=processed, grain=grain,
+                mirror=mirror)
+
+
+def skip_line(sk) -> str:
+    """skipped_pairs' numbers as a log line's clause."""
+    return (f"the footprint test ({sk['grain']}) skips {sk['skipped']} of "
+            f"the {sk['processed']} evaluated pairs "
+            f"({sk['skipped'] / sk['processed']:.4f}; the kernel's count; "
+            f"its torch mirror predicts {sk['mirror']})")
 
 
 def fwd_bound(geom, counts, nblk, dlim, tiles_x, cfg, n_tiles_per_image=0):
@@ -634,7 +721,7 @@ def main() -> int:
         if float(bwd_k[0][:, :6].abs().max()) <= 0.0:
             raise AssertionError(f"{tag}: zero geometry gradients")
     # 3d. the forward on 32x32 tiles (the JAX package's tile size for its
-    # 3M-Gaussian config): the kernel's 1024-thread instance
+    # 3M-Gaussian config): the kernel's cluster instance
     cfg_32 = RenderConfig(tile_size=32, tile_capacity=1024)
     with torch.no_grad():
         geom_32, feat_32, counts_32, _ = bin_and_gather_packed(
@@ -1027,12 +1114,14 @@ def main() -> int:
         "tile32_bound_ms": left["tile32_fwd_bound_ms"],
         "tile32_bound_by": left["tile32_fwd_bound_by"],
         "tile32_max_abs_err": left["tile32_fwd_max_abs_err"],
+        "tile32_skipped_share": left["tile32_fwd_skipped_share"],
         "feasibility_launches": feas["launches"][0],
         "feasibility_ms": feas["fwd_ms"],
         "feasibility_plain_ms": feas["fwd_plain_ms"],
         "feasibility_bound_ms": feas["fwd_bound_ms"],
         "feasibility_bound_by": feas["fwd_bound_by"],
         "feasibility_max_abs_err": feas["fwd_max_abs_err"],
+        "feasibility_skipped_share": feas["fwd_skipped_share"],
         "unpacked_max_abs_err": meas["unpacked_max_abs_err"],
         "staged_launches": meas["staged_launches"][0],
         "staged_ms": meas["staged_fwd_ms"],
@@ -3090,6 +3179,8 @@ def tile32(dev, smi: str) -> dict:
         fwd_err = compare_fwd(fwd_w, composite_fwd_plain(
             geom_w, feat_w, counts_w, None, **kw_w), f"32x32 tiles K={K32}",
             (geom_w, counts_w, None, kw_w))[0]
+        quadrant_check(geom_w, feat_w, counts_w, None, fwd_w, kw_w,
+                       f"32x32 tiles K={K32}")
         gout_w = torch.randn(fwd_w[0].shape, generator=torch.Generator()
                              .manual_seed(32)).to(dev)
         args_w = (geom_w, feat_w, counts_w, None, gout_w, *fwd_w[1:])
@@ -3104,6 +3195,8 @@ def tile32(dev, smi: str) -> dict:
                              .manual_seed(33)) * 4.0 + 2.0).to(dev)
         kw_d = dict(kw_w, has_dlim=True)
         fwd_d = composite_fwd(geom_w, feat_w, counts_w, dlim_w, **kw_d)
+        quadrant_check(geom_w, feat_w, counts_w, dlim_w, fwd_d, kw_d,
+                       f"32x32 tiles K={K32} dlim")
         args_d = (geom_w, feat_w, counts_w, dlim_w, gout_w, *fwd_d[1:])
         bwd_err = max(bwd_err, compare_bwd(
             composite_bwd(*args_d, **kw_d),
@@ -3132,11 +3225,13 @@ def tile32(dev, smi: str) -> dict:
             geom_w, feat_w, counts_w, None, **kw_w), reps=2, warmup=1)
         fwd32_bound_ms, fwd32_bound_by, fwd32_detail, work32 = fwd_bound(
             geom_w, counts_w, fwd_w[2], None, tx32, cfg32)
+        skip32 = skipped_pairs(geom_w, feat_w, counts_w, tx32, cfg32)
         tile32_bound_ms, tile32_bound_by, tile32_detail = bwd_bound(
             geom_w, counts_w, fwd_w[2], None, tx32, cfg32, work32)
     log(f"  composite_fwd on 32x32 tiles (T={T32}, K={K32}) {fwd32_ms:.4f} "
         f"ms, plain {fwd32_plain_ms:.4f} ms; bound {fwd32_bound_ms:.6f} ms "
-        f"({fwd32_detail}), share {fwd32_bound_ms / fwd32_ms:.4f} ({smi})")
+        f"({fwd32_detail}), share {fwd32_bound_ms / fwd32_ms:.4f}; "
+        f"{skip_line(skip32)} ({smi})")
     log(f"  composite_bwd on 32x32 tiles (T={T32}, K={K32}, {splits32} "
         f"blocks a tile) {tile32_ms:.4f} ms, plain {tile32_plain_ms:.4f} "
         f"ms; bound {tile32_bound_ms:.6f} ms ({tile32_detail}), share "
@@ -3148,7 +3243,9 @@ def tile32(dev, smi: str) -> dict:
                    tile32_max_abs_err=bwd_err, tile32_fwd_max_abs_err=fwd_err,
                    tile32_fwd_ms=fwd32_ms, tile32_fwd_plain_ms=fwd32_plain_ms,
                    tile32_fwd_bound_ms=fwd32_bound_ms,
-                   tile32_fwd_bound_by=fwd32_bound_by)
+                   tile32_fwd_bound_by=fwd32_bound_by,
+                   tile32_fwd_skipped_share=(skip32["skipped"]
+                                             / skip32["processed"]))
     del geom_w, feat_w, fwd_w, gout_w, args_w, got_w
     cfg_t32 = TrainConfig(render=cfg32, impl="tiled", sh_warmup_every=1,
                           densify_from=10**9, opacity_reset_interval=10**9,
@@ -3306,6 +3403,7 @@ def feasibility(dev, smi: str) -> dict:
         fwd_err = compare_fwd(fwd, composite_fwd_plain(
             geom, feat, counts, None, **kw), "3M 512x512",
             (geom, counts, None, kw))[0]
+        quadrant_check(geom, feat, counts, None, fwd, kw, "3M 512x512")
         gout = torch.randn(fwd[0].shape, generator=torch.Generator()
                            .manual_seed(13)).to(dev)
         args = (geom, feat, counts, None, gout, *fwd[1:])
@@ -3328,8 +3426,10 @@ def feasibility(dev, smi: str) -> dict:
                                                   tx, cfg)
         bb_ms, bb_by, bb_detail = bwd_bound(geom, counts, fwd[2], None, tx,
                                             cfg, work)
+        skip = skipped_pairs(geom, feat, counts, tx, cfg)
     log(f"  composite_fwd {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms; bound "
-        f"{fb_ms:.6f} ms ({fb_detail}), share {fb_ms / fwd_ms:.4f} ({smi})")
+        f"{fb_ms:.6f} ms ({fb_detail}), share {fb_ms / fwd_ms:.4f}; "
+        f"{skip_line(skip)} ({smi})")
     log(f"  composite_bwd {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms; bound "
         f"{bb_ms:.6f} ms ({bb_detail}), share {bb_ms / bwd_ms:.4f}; library "
         f"call: none ({smi})")
@@ -3372,6 +3472,7 @@ def feasibility(dev, smi: str) -> dict:
     log(f"  phase 13 {time.perf_counter() - t13:.1f} s")
     return dict(launches=launches, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
                 fwd_bound_ms=fb_ms, fwd_bound_by=fb_by,
+                fwd_skipped_share=skip["skipped"] / skip["processed"],
                 fwd_max_abs_err=fwd_err, bwd_ms=bwd_ms,
                 bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bb_ms,
                 bwd_bound_by=bb_by, bwd_max_abs_err=bwd_err, splits=splits,

@@ -38,24 +38,29 @@ every per-pixel value in registers; the forward evaluates 8 alphas ahead
 of its serial transmittance update, and the backward evaluates each
 alpha once and skips, exactly, the slots no pixel of a warp keeps and
 the groups every pixel of a warp enters saturated. On tiles over 16x16
-(or not in whole warps) the backward splits each tile's processed
-blocks across `bwd_splits` blocks of one thread-block cluster, which
-pass each other the suffix they carry in, and launches the deepest
-tiles first. Not yet done: TMA staging,
+(or not in whole warps) both kernels run a tile as one thread-block
+cluster: the forward splits the tile's pixel rows into the bands of
+`fwd_bands` (one block each, one stop vote for the tile through
+distributed shared memory) and walks only the slots some pixel of a
+warp's or a band's box may keep (`fwd_skip_grain`; `footprint_misses`
+is the test in torch), the backward splits its processed blocks
+across `bwd_splits` blocks, which pass each other the suffix they carry
+in, and launches the deepest tiles first. Not yet done: TMA staging,
 tensor-core forms of the backward's sums over pixels; the csrc/ sources
 have the details.
 
 On a CPU tensor each wrapper runs its plain torch version
 (`composite_fwd_plain`, `composite_bwd_plain`); on a CUDA tensor it
 launches the kernel or raises. Both kernels take tiles of up to 32x32
-pixels, any count P <= 1024 (whole warps up to 16x16 in one instance,
-everything else in another).
+pixels, any count P <= 1024 (whole warps up to 16x16 one block a tile,
+everything else as a cluster).
 """
 
 from __future__ import annotations
 
 import ctypes
 import functools
+import math
 
 import torch
 
@@ -77,10 +82,130 @@ _PLAIN_TILE_CHUNK = 128
 MAX_SPLITS = 8
 
 
+# pixels (threads) of one forward block
+FWD_THREADS = 256
+# the forward's skip grains (csrc/composite_fwd.cu SKIP_NONE, SKIP_WARP,
+# SKIP_BAND)
+_GRAINS = {"none": 0, "warp": 1, "band": 2}
+
+
 def _split_kernel(P: int) -> bool:
-    """Whether the backward runs tiles of P pixels through its split
-    kernel: all but whole warps up to 16x16."""
+    """Whether both kernels run a tile of P pixels as a thread-block
+    cluster (the backward through its split kernel): all but whole warps
+    up to 16x16."""
     return P % 32 != 0 or P > 256
+
+
+def fwd_bands(tile_size: int) -> list[tuple[int, int]]:
+    """The forward kernel's blocks for one tile: [(row0, row1), ...], the
+    tile's pixel rows that block rank r composites, one block a tile for
+    whole warps up to 16x16, else S = ceil(ts / (256 // ts)) blocks of
+    one cluster (ceil(P / 256) for every tile up to 32x32),
+    rank r taking rows [r ts / S, (r + 1) ts / S): at most 256 pixels a
+    band. The mirror of csrc/composite_fwd.cu's rule, which the launcher
+    applies itself."""
+    ts = tile_size
+    if ts < 1 or ts * ts > 1024:
+        raise ValueError(f"tile_size {ts}: the forward takes 1..32")
+    if not _split_kernel(ts * ts):
+        return [(0, ts)]
+    n = -(-ts // (FWD_THREADS // ts))
+    return [(r * ts // n, (r + 1) * ts // n) for r in range(n)]
+
+
+def fwd_skip_grain(n_tiles: int, tile_size: int, n_sms: int) -> str | None:
+    """Which pixels the forward's cluster instance tests a batch's slots
+    for before it walks them: "warp" (each warp for its own pixels) where
+    every block of the launch is resident at once, two a SM (n_tiles x
+    S <= 2 n_sms: each warp's chain of slots sets the time, and a warp's
+    row skips the most), else "band" (each block once for its band: the
+    launch runs in waves, so the test's own work counts). None for tiles
+    of whole warps up to 16x16 (one block a tile, no skip).
+
+    Measured by tools/fwd_grains.py on an NVIDIA H100 80GB HBM3 at 700 W
+    (132 SMs, 32x32 tiles, PERF.md): on the 3M view cut to T = 64, 96,
+    ..., 256 tiles, "warp" was the faster at T 64 and "band" at every T
+    from 96, so the switch lies between 256 and 384 blocks, where this
+    rule puts it (264). On the bench view batched to T = 64 ... 256,
+    "warp" was the faster at every T: there the rule's "band" past T 66
+    costs 13-30 % against "warp" (still faster than no skip). Which grain
+    wins past one wave depends on the splats, which the launch does not
+    see."""
+    if not _split_kernel(tile_size * tile_size):
+        return None
+    fits = n_tiles * len(fwd_bands(tile_size)) <= 2 * n_sms
+    return "warp" if fits else "band"
+
+
+def fwd_skip_groups(tile_size: int, grain: str) -> list[tuple[int, int]]:
+    """The pixel groups whose box the cluster instance tests for its skip,
+    as tile pixel ranges [(p0, p1), ...]: "warp", the warps, 32
+    consecutive pixels of a band each (the last of a band may hold
+    fewer); "band", each block's band of `fwd_bands`."""
+    ts = tile_size
+    if grain == "warp":
+        return [(w, min(w + 32, r1 * ts)) for r0, r1 in fwd_bands(ts)
+                for w in range(r0 * ts, r1 * ts, 32)]
+    return [(r0 * ts, r1 * ts) for r0, r1 in fwd_bands(ts)]
+
+
+def footprint_misses(geom: torch.Tensor, *, tiles_x: int, cfg: RenderConfig,
+                     grain: str, n_tiles_per_image: int = 0,
+                     t_idx: torch.Tensor | None = None) -> torch.Tensor:
+    """(T, G, K) bool: the cluster instance's footprint test
+    (csrc/composite_fwd.cu::misses) in plain torch, for each pixel group
+    of `fwd_skip_groups` and slot: True where the group skips the slot
+    because no pixel center of the box its pixels span (their rows, and
+    the columns of one row or the tile's width) can keep the splat. q's
+    least value on the box lies on its boundary (each edge's vertex
+    clamped to the edge), or is 0 where the mean lies inside; a slot is
+    skipped only where it exceeds ln(op / alpha_min) by 2e-6 of the
+    largest sum of |terms| of q over the box plus 1e-5 (1 + |ln(op /
+    alpha_min)|), and never where a <= 0, c <= 0, op <= 0 or anything is
+    not finite. t_idx (T,) overrides each row's within-image tile index
+    (else t % n_tiles_per_image). Used by tests and chip_smoke.py (the
+    share of pairs skipped); the kernel runs its own."""
+    T, _, K = geom.shape
+    ts = cfg.tile_size
+    dev = geom.device
+    groups = torch.tensor(fwd_skip_groups(ts, grain), device=dev)   # (G, 2)
+    tl = t_idx if t_idx is not None else (
+        torch.arange(T, device=dev) % (n_tiles_per_image or max(T, 1)))
+    tx0 = ((tl % tiles_x) * ts)[:, None]
+    ty0 = ((tl // tiles_x) * ts)[:, None]
+    r0, r1 = groups[:, 0] // ts, (groups[:, 1] - 1) // ts      # (G,)
+    one = r0 == r1
+    c0 = torch.where(one, groups[:, 0] % ts, 0)
+    c1 = torch.where(one, (groups[:, 1] - 1) % ts, ts - 1)
+    mx, my, a, b, c, op = (geom[:, i, None, :] for i in range(6))
+    dx0 = (tx0 + c0).float()[:, :, None] - mx                 # (T, G, K)
+    dx1 = (tx0 + c1).float()[:, :, None] - mx
+    dy0 = (ty0 + r0).float()[:, :, None] - my
+    dy1 = (ty0 + r1).float()[:, :, None] - my
+
+    def q(dx, dy):
+        return 0.5 * (a * dx * dx + c * dy * dy) + b * dx * dy
+
+    def on_row(dy):
+        return q(torch.minimum(torch.maximum(-b * dy / a, dx0), dx1), dy)
+
+    def on_col(dx):
+        return q(dx, torch.minimum(torch.maximum(-b * dx / c, dy0), dy1))
+
+    q_min = torch.minimum(torch.minimum(on_row(dy0), on_row(dy1)),
+                          torch.minimum(on_col(dx0), on_col(dx1)))
+    inside = (dx0 <= 0) & (dx1 >= 0) & (dy0 <= 0) & (dy1 >= 0)
+    q_min = torch.where(inside, torch.clamp_max(q_min, 0.0), q_min)
+    dxm = torch.maximum(dx0.abs(), dx1.abs())
+    dym = torch.maximum(dy0.abs(), dy1.abs())
+    terms = 0.5 * (a * dxm * dxm + c * dym * dym) + b.abs() * dxm * dym
+    thr = torch.log(op) - math.log(cfg.alpha_min)
+    margin = 2e-6 * terms + 1e-5 * (1.0 + thr.abs())
+    finite = ((a > 0) & (c > 0) & (op > 0) & torch.isfinite(mx)
+              & torch.isfinite(my) & torch.isfinite(a) & torch.isfinite(b)
+              & torch.isfinite(c) & torch.isfinite(op))
+    return (finite & torch.isfinite(q_min) & torch.isfinite(margin)
+            & torch.isfinite(thr) & (q_min - margin > thr))
 
 
 def bwd_splits(n_tiles: int, K: int, P: int, n_sms: int) -> int:
@@ -154,11 +279,12 @@ def _check_inputs(geom, feat, counts, dlim, cfg, has_dlim):
 
 _PTR, _I32, _F32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # the C signatures of csrc/*.cu's launch functions: tensors (the
-# backward's with the launch order of the tiles), the int shapes, the 3
-# RenderConfig thresholds, (backward) absgrad and the splits a tile, the
-# stream
+# backward's with the launch order of the tiles, the forward's with its
+# pair counters), the int shapes (the forward's with its skip grain), the
+# 3 RenderConfig thresholds, (backward) absgrad and the splits a tile,
+# the stream
 _ARGTYPES = {
-    "composite_fwd": [_PTR] * 8 + [_I32] * 5 + [_F32] * 3 + [_PTR],
+    "composite_fwd": [_PTR] * 9 + [_I32] * 6 + [_F32] * 3 + [_PTR],
     "composite_bwd": [_PTR] * 11 + [_I32] * 5 + [_F32] * 3 + [_I32] * 2
     + [_PTR],
 }
@@ -199,7 +325,8 @@ def _raise_on(lib: ctypes.CDLL, name: str, rc: int) -> None:
 def composite_fwd(geom: torch.Tensor, feat: torch.Tensor,
                   counts: torch.Tensor, dlim: torch.Tensor | None, *,
                   tiles_x: int, cfg: RenderConfig, n_tiles_per_image: int = 0,
-                  has_dlim: bool = True):
+                  has_dlim: bool = True, skip: str | None = None,
+                  pairs: torch.Tensor | None = None):
     """(T,8,K) geom/feat + (T,) int32 counts + (T,P,1) dlim ->
     (out (T,8,P), log_t_final (T,P,1), nblk (T,) int32,
     log_t_groups (T,K/16,P)).
@@ -209,8 +336,25 @@ def composite_fwd(geom: torch.Tensor, feat: torch.Tensor,
     tile t takes the pixel coordinates of tile t % n_tiles_per_image
     (multi-camera batches concatenated on the tile axis; 0 = T).
     Records no autograd graph of its own: `Composite` is the
-    differentiable form. `composite_fwd.launches` counts kernel launches."""
+    differentiable form. `composite_fwd.launches` counts kernel launches.
+
+    For measurement and tests: skip forces the slots the kernel walks,
+    "none" (every slot), or on tiles that run as a cluster "warp" or
+    "band" (None: `fwd_skip_grain`); every choice gives the same bits.
+    pairs, a (2,) int64 tensor on the card, gets the (pixel, slot) pairs
+    the cluster instance walked and those of the batches it processed
+    added to it (tiles over 16x16 or not in whole warps, CUDA tensors
+    only: the one-block instance and the plain version count none)."""
     _check_inputs(geom, feat, counts, dlim, cfg, has_dlim)
+    cluster = _split_kernel(cfg.tile_size * cfg.tile_size)
+    if skip not in (None, "none") and (skip not in _GRAINS or not cluster):
+        raise ValueError(f"skip {skip!r}: 'none', or 'warp' or 'band' on "
+                         f"tiles over 16x16 or not in whole warps")
+    if pairs is not None and (pairs.shape != (2,) or pairs.dtype != torch.int64
+                              or pairs.device != geom.device
+                              or geom.device.type != "cuda" or not cluster):
+        raise ValueError("pairs must be a (2,) int64 tensor on geom's CUDA "
+                         "device, and the tiles run as a cluster")
     if geom.device.type == "cpu":
         return composite_fwd_plain(geom, feat, counts, dlim, tiles_x=tiles_x,
                                    cfg=cfg, n_tiles_per_image=n_tiles_per_image,
@@ -229,13 +373,15 @@ def composite_fwd(geom: torch.Tensor, feat: torch.Tensor,
         return out, log_t_final, nblk, log_t_groups
     lib = _lib("composite_fwd")
     stream = torch.cuda.current_stream(geom.device).cuda_stream
+    grain = skip or fwd_skip_grain(T, cfg.tile_size, _sm_count(geom.device))
     with torch.cuda.device(geom.device):
         rc = lib.composite_fwd_launch(
             geom.data_ptr(), feat.data_ptr(), counts.data_ptr(),
             dlim.data_ptr() if has_dlim else None,
             out.data_ptr(), log_t_final.data_ptr(), log_t_groups.data_ptr(),
-            nblk.data_ptr(), T, K, tiles_x, n_tiles_per_image or T,
-            cfg.tile_size, cfg.alpha_clamp, cfg.alpha_min,
+            nblk.data_ptr(), None if pairs is None else pairs.data_ptr(),
+            T, K, tiles_x, n_tiles_per_image or T, cfg.tile_size,
+            _GRAINS[grain or "none"], cfg.alpha_clamp, cfg.alpha_min,
             cfg.transmittance_min, stream)
     _raise_on(lib, "composite_fwd", rc)
     composite_fwd.launches += 1

@@ -10,6 +10,7 @@ fixture, never at import). On a machine with an H100, nvcc and no JAX:
 
 import dataclasses
 
+import numpy as np
 import pytest
 import torch
 
@@ -22,9 +23,13 @@ from robosimgs_tpu_torch.render.kernels import (BK, LT_GROUP, bwd_splits,
                                                 composite_bwd,
                                                 composite_bwd_plain,
                                                 composite_fwd,
-                                                composite_fwd_plain)
+                                                composite_fwd_plain,
+                                                footprint_misses)
 from robosimgs_tpu_torch.render.project import project
 from robosimgs_tpu_torch.render.tiles import num_tiles
+from robosimgs_tpu_torch.tools.quadrants import (forward_diffs,
+                                                 quadrant_blocks,
+                                                 quadrant_diffs)
 from robosimgs_tpu_torch.tools.workloads import bench_config, saturated_scene
 from robosimgs_tpu_torch.train.data import Frame
 from robosimgs_tpu_torch.train.trainer import TrainConfig, Trainer
@@ -106,10 +111,12 @@ def test_kernel_matches_plain_with_depth_limit_and_two_images(device):
     assert_fwd_agrees(got, composite_fwd_plain(geom, feat, counts, dlim, **kw))
 
 
-@pytest.mark.parametrize("tile_size", [32, 12])
+@pytest.mark.parametrize("tile_size", [32, 12, 20, 24])
 def test_kernel_matches_plain_on_other_tile_sizes(device, tile_size):
-    """32x32 tiles run the forward's 1024-thread instance; 12x12 tiles
-    (144 pixels) end in a partial warp."""
+    """Tiles over 16x16 or not in whole warps run the forward as a
+    cluster of fwd_bands blocks: 32x32 as 4 bands of 256 pixels, 24x24 as
+    3 of 192, 20x20 as 2 of 200 (each ending in a partial warp); 12x12
+    (144 pixels, a partial warp) as a cluster of one."""
     g, cam = _scene(device)
     cfg = RenderConfig(tile_size=tile_size, tile_capacity=1024)
     with torch.no_grad():
@@ -122,6 +129,146 @@ def test_kernel_matches_plain_on_other_tile_sizes(device, tile_size):
     torch.cuda.synchronize()
     assert composite_fwd.launches == before + 1
     assert_fwd_agrees(got, composite_fwd_plain(geom, feat, counts, None, **kw))
+
+
+@pytest.mark.parametrize("tile_size,has_dlim,n_img", [
+    (32, False, 1), (32, True, 1), (24, False, 1), (32, False, 2)])
+def test_fwd_cluster_equals_quadrant_tiles(device, tile_size, has_dlim,
+                                           n_img):
+    """The cluster instance on each tile against the forward on the tile's
+    four quadrants walking every slot (tools/quadrants.py; 16x16
+    quadrants run the one-block instance, 12x12 ones a cluster of one):
+    out bit-equal on every pixel,
+    log_t_final on the quadrants whose nblk is the tile's, log_t_groups
+    on the batches both processed, each tile's nblk its quadrants'
+    largest. With a depth limit, and on a 2-image batch."""
+    g, cam = _scene(device, w=96, h=96)
+    _, cam2 = _scene(device, w=96, h=96, eye=(-3.0, 2.5, 1.0))
+    cfg = RenderConfig(tile_size=tile_size, tile_capacity=1024)
+    with torch.no_grad():
+        blocks = [bin_and_gather_packed(project(g, c, cfg), c.width,
+                                        c.height, cfg)
+                  for c in (cam, cam2)[:n_img]]
+    geom = torch.cat([b[0] for b in blocks])
+    feat = torch.cat([b[1] for b in blocks])
+    counts = torch.cat([b[2] for b in blocks])
+    T, P = geom.shape[0], tile_size ** 2
+    dlim = None
+    if has_dlim:
+        dlim = (torch.rand((T, P, 1), generator=torch.Generator()
+                           .manual_seed(4)) * 4 + 2).to(device)
+    kw = dict(tiles_x=num_tiles(96, 96, tile_size)[0], cfg=cfg,
+              n_tiles_per_image=T // n_img if n_img > 1 else 0,
+              has_dlim=has_dlim)
+    full = composite_fwd(geom, feat, counts, dlim, **kw)
+    *half_in, kw_half = quadrant_blocks(geom, feat, counts, dlim, **kw)
+    half = composite_fwd(*half_in, **kw_half, skip="none")
+    torch.cuda.synchronize()
+    d = quadrant_diffs(full, half, **kw)
+    assert d["nblk_over"] == 0
+    assert d["tiles_equal"] > 0
+    assert (d["out"], d["log_t_final"], d["log_t_groups"]) == (0.0, 0.0, 0.0)
+    assert int(full[2].max()) > 1      # more than one batch: votes matter
+
+
+def _cutoff_blocks(ts, tiles_x, tiles_y, K=512, seed=0):
+    """Gathered (T, 8, K) blocks for ts-px tiles whose splats sit at the
+    warps' footprint test's edge: means within 12 px of the tile, half
+    of them thin (axis ratio up to 1e3, any orientation), and 70 % of the
+    opacities set so that the splat's largest alpha over one warp-row of
+    pixels (32 px of one tile row) is within 0.5 % of 1/255."""
+    rng = np.random.default_rng(seed)
+    T = tiles_x * tiles_y
+    ox = (np.arange(T) % tiles_x * ts)[:, None]
+    oy = (np.arange(T) // tiles_x * ts)[:, None]
+    mx = ox + rng.uniform(-12, ts + 12, (T, K))
+    my = oy + rng.uniform(-12, ts + 12, (T, K))
+    thin = rng.uniform(size=(T, K)) < 0.5
+    sx = np.where(thin, 10.0 ** rng.uniform(-1.0, 1.5, (T, K)),
+                  rng.uniform(0.5, 8.0, (T, K)))
+    sy = np.where(thin, sx * 10.0 ** rng.uniform(-3.0, 0.0, (T, K)),
+                  rng.uniform(0.5, 8.0, (T, K)))
+    rho = np.where(thin, rng.uniform(-0.999, 0.999, (T, K)),
+                   rng.uniform(-0.5, 0.5, (T, K)))
+    cxy = rho * sx * sy
+    det = sx * sx * sy * sy - cxy * cxy
+    a, b, c = sy * sy / det, -cxy / det, sx * sx / det
+    row = oy + rng.integers(0, ts, (T, K))
+    xs = ox[:, :, None] + np.arange(min(ts, 32))[None, None, :]
+    dx = xs - mx[:, :, None]
+    dy = (row - my)[:, :, None]
+    q = (0.5 * (a[:, :, None] * dx * dx + c[:, :, None] * dy * dy)
+         + b[:, :, None] * dx * dy).min(axis=2)
+    op = rng.uniform(0.0, 1.0, (T, K))
+    at_cut = (q < 40) & (rng.uniform(size=(T, K)) < 0.7)
+    op = np.where(at_cut, np.minimum(
+        np.exp(np.minimum(q, 40)) / 255.0 * rng.uniform(0.995, 1.005, (T, K)),
+        0.99), op)
+    geom = np.zeros((T, 8, K), np.float32)
+    for i, v in enumerate((mx, my, a, b, c, op)):
+        geom[:, i] = v
+    geom[:, 6] = np.sort(rng.uniform(1.0, 5.0, (T, K)), axis=1)
+    feat = rng.uniform(0, 1, (T, 8, K)).astype(np.float32)
+    counts = rng.integers(K // 2, K + 1, T).astype(np.int32)
+    return geom, feat, counts
+
+
+@pytest.mark.parametrize("tile_size,tiles_x,tiles_y,grain", [
+    (32, 3, 2, "warp"), (32, 9, 8, "band"), (24, 3, 2, "warp"),
+    (24, 12, 8, "band"), (20, 3, 2, "warp")])
+def test_fwd_cluster_equals_quadrants_at_the_cutoff(device, tile_size,
+                                                    tiles_x, tiles_y, grain):
+    """Splats at the footprint test's edge (thin conics, alphas within
+    0.5 % of 1/255 on a warp's row): the cluster instance, skipping what
+    its test rejects at `grain` (each warp for itself, or each band),
+    bit for bit against the forward on each tile's quadrants walking
+    every slot (16x16 quadrants run the one-block instance, 12x12 and
+    10x10 ones a cluster of one with skip "none"), and against the plain
+    version; the test's torch mirror skips slots."""
+    cfg = RenderConfig(tile_size=tile_size, tile_capacity=512)
+    geom, feat, counts = (torch.from_numpy(x).to(device) for x in
+                          _cutoff_blocks(tile_size, tiles_x, tiles_y))
+    kw = dict(tiles_x=tiles_x, cfg=cfg, has_dlim=False)
+    full = composite_fwd(geom, feat, counts, None, **kw, skip=grain)
+    *half_in, kw_half = quadrant_blocks(geom, feat, counts, None, **kw)
+    half = composite_fwd(*half_in, **kw_half, skip="none")
+    torch.cuda.synchronize()
+    d = quadrant_diffs(full, half, **kw)
+    assert d["nblk_over"] == 0
+    assert (d["out"], d["log_t_final"], d["log_t_groups"]) == (0.0, 0.0, 0.0)
+    assert_fwd_agrees(full, composite_fwd_plain(geom, feat, counts, None,
+                                                **kw))
+    assert float(footprint_misses(geom, tiles_x=tiles_x, cfg=cfg,
+                                  grain=grain).float().mean()) > 0.2
+
+
+@pytest.mark.parametrize("tile_size,grain", [
+    (32, "warp"), (32, "band"), (24, "warp"), (24, "band"), (20, "warp"),
+    (20, "band"), (12, "warp"), (12, "band")])
+def test_fwd_skip_keeps_the_bits(device, tile_size, grain):
+    """Each skip grain of the cluster instance against the same instance
+    walking every slot (skip "none"), on splats at the footprint test's
+    edge: every output bit for bit (20x20 bands and 12x12 tiles end in a
+    partial warp), and the kernel's pair counts: every processed pair
+    walked without a skip, some skipped with one, the processed pairs
+    those of the blocks nblk covers."""
+    cfg = RenderConfig(tile_size=tile_size, tile_capacity=512)
+    geom, feat, counts = (torch.from_numpy(x).to(device) for x in
+                          _cutoff_blocks(tile_size, 3, 2, seed=1))
+    kw = dict(tiles_x=3, cfg=cfg, has_dlim=False)
+    pairs_all = torch.zeros(2, dtype=torch.int64, device=device)
+    pairs = torch.zeros(2, dtype=torch.int64, device=device)
+    every = composite_fwd(geom, feat, counts, None, **kw, skip="none",
+                          pairs=pairs_all)
+    got = composite_fwd(geom, feat, counts, None, **kw, skip=grain,
+                        pairs=pairs)
+    torch.cuda.synchronize()
+    assert all(v == 0.0 for v in forward_diffs(got, every).values())
+    processed = int((torch.minimum(every[2].long() * BK, counts.long())
+                     ).sum()) * tile_size ** 2
+    assert pairs_all.tolist() == [processed, processed]
+    assert int(pairs[1]) == processed
+    assert 0 < int(pairs[0]) < processed
 
 
 @pytest.mark.parametrize("tile_size,has_dlim", [(32, False), (32, True),
