@@ -185,6 +185,24 @@ Phases, each of which raises on a fault (nothing is caught):
                against their plain versions at the staged shape and the
                forward at the lossless K on half its tiles, with times
                and bounds
+ 15. at scale — the repo's at-scale runs through the port's tools
+               (tools/flagship.py, ab_features.py, policy_multidof.py)
+               at full width and short depth: the flagship (48
+               mesh-raster targets at 512x512 with zero truncation, a
+               500,000-slot pool from 20,000 points, K 2,048) trained 601
+               steps of its 7,000-step schedule across the densify
+               rounds at 480 and 600, each log line's loss, PSNR, alive
+               count and overflow, one launch of each kernel a step, the
+               step's ms, idle share and peak memory, held-out PSNR,
+               both kernels against their plain versions at T 1,024 / P
+               256 / K 2,048 on the trained state, timed and bounded;
+               the seven feature arms 100 steps each at 512x512 (finite
+               loss, held-out PSNR above the initial pool's, ms a step);
+               the 2-DOF policy: 8 episodes of 36 frames (one forward
+               launch a frame), 500 policy steps (the loss falls), 2
+               closed-loop episodes at 50 DDIM steps, the forward
+               against its plain version at its frame's shape (64x64,
+               T 16, K 256, the meshes' depth limit), timed and bounded
 The line before the last lists the kernels; the last line is the result.
 Exits non-zero without a CUDA device.
 """
@@ -1078,6 +1096,9 @@ def main() -> int:
     # 14. the unpacked binner, profile_stages, k_equiv and the 1M staged
     # config
     meas = measure(dev, smi)
+    # 15. the at-scale runs: the flagship, the feature arms, the 2-DOF
+    # policy
+    big = at_scale(dev, smi)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
@@ -1089,7 +1110,8 @@ def main() -> int:
             pol["max_abs_err"], left["batch_max_abs_err"],
             left["tile32_fwd_max_abs_err"], multi["fwd_max_abs_err"],
             feas["fwd_max_abs_err"], meas["unpacked_max_abs_err"],
-            meas["staged_fwd_max_abs_err"], meas["lossless_fwd_max_abs_err"]),
+            meas["staged_fwd_max_abs_err"], meas["lossless_fwd_max_abs_err"],
+            big["fwd_max_abs_err"], big["policy_max_abs_err"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "rollout_launches": roll["launches"], "rollout_ms": roll["ms"],
@@ -1135,14 +1157,25 @@ def main() -> int:
         "lossless_bound_by": meas["lossless_fwd_bound_by"],
         "lossless_half_ms": meas["lossless_half_ms"],
         "lossless_half_plain_ms": meas["lossless_half_plain_ms"],
-        "lossless_max_abs_err": meas["lossless_fwd_max_abs_err"]}, {
+        "lossless_max_abs_err": meas["lossless_fwd_max_abs_err"],
+        "flagship_launches": big["launches"][0],
+        "flagship_ms": big["fwd_ms"], "flagship_plain_ms": big["fwd_plain_ms"],
+        "flagship_bound_ms": big["fwd_bound_ms"],
+        "flagship_bound_by": big["fwd_bound_by"],
+        "flagship_max_abs_err": big["fwd_max_abs_err"],
+        "policy2dof_launches": big["policy_launches"],
+        "policy2dof_ms": big["policy_ms"],
+        "policy2dof_plain_ms": big["policy_plain_ms"],
+        "policy2dof_bound_ms": big["policy_bound_ms"],
+        "policy2dof_bound_by": big["policy_bound_by"],
+        "policy2dof_max_abs_err": big["policy_max_abs_err"]}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "robosimgs_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "robosimgs_tpu/render/pallas_kernels.py:221",
         "launches": launches_train[1], "max_abs_err": max(
             err_bwd, err_32, left["tile32_max_abs_err"],
             multi["bwd_max_abs_err"], feas["bwd_max_abs_err"],
-            meas["staged_bwd_max_abs_err"]),
+            meas["staged_bwd_max_abs_err"], big["bwd_max_abs_err"]),
         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by, "library_ms": None,
         "tile32_K": left["tile32_K"], "tile32_ms": left["tile32_ms"],
@@ -1167,10 +1200,324 @@ def main() -> int:
         "staged_plain_ms": meas["staged_bwd_plain_ms"],
         "staged_bound_ms": meas["staged_bwd_bound_ms"],
         "staged_bound_by": meas["staged_bwd_bound_by"],
-        "staged_max_abs_err": meas["staged_bwd_max_abs_err"]}]}))
+        "staged_max_abs_err": meas["staged_bwd_max_abs_err"],
+        "flagship_launches": big["launches"][1],
+        "flagship_ms": big["bwd_ms"], "flagship_plain_ms": big["bwd_plain_ms"],
+        "flagship_bound_ms": big["bwd_bound_ms"],
+        "flagship_bound_by": big["bwd_bound_by"],
+        "flagship_max_abs_err": big["bwd_max_abs_err"]}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0
+
+
+# phase 15's depth: steps of the flagship (the 601st logs step 600),
+# steps of each feature arm, and the 2-DOF policy's episodes, policy
+# steps and closed-loop episodes
+FLAGSHIP_STEPS = 601
+AB_STEPS = 100
+POLICY_EPISODES, POLICY_STEPS, POLICY_EVAL = 8, 500, 2
+
+
+def at_scale(dev, smi: str) -> dict:
+    """Phase 15: the repo's at-scale runs through the port's tools, at
+    full width and short depth. (a) tools/flagship.py: the 48 mesh-raster
+    targets at 512x512 (zero truncation asserted), the Trainer with the
+    7,000-step schedule run FLAGSHIP_STEPS steps across the densify
+    rounds at 480 and 600: every log line's loss, PSNR, alive count and
+    `overflow` (and, by one more binning of that state on that step's
+    view, its overflowed tiles and truncated Gaussians), one launch of
+    each kernel a step, the step's host wall, CUDA events, peak memory
+    and the device's idle share over 10 profiled steps, held-out PSNR;
+    then both kernels against their plain versions on the trained state
+    at the flagship shape (T 1,024, P 256, K 2,048), timed and bounded.
+    (b) tools/ab_features.py: each of the seven arms AB_STEPS steps at
+    512x512, 24 views, capacity 100,000: finite loss, held-out PSNR above
+    the initial pool's, ms a step. (c) tools/policy_multidof.py:
+    POLICY_EPISODES episodes of 36 frames (one forward launch a frame),
+    POLICY_STEPS policy steps (the loss falls), POLICY_EVAL closed-loop
+    episodes at 50 DDIM steps; frames/s, ms a policy step, s an episode;
+    the forward against its plain version at that frame's shape (T 16,
+    K 256, the meshes' depth limit), timed and bounded. Returns the
+    numbers of the kernels line."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from robosimgs_tpu_torch.core.camera import Camera
+    from robosimgs_tpu_torch.core.types import Gaussians
+    from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
+    from robosimgs_tpu_torch.render.compose import merge_mesh_layers
+    from robosimgs_tpu_torch.render.gathered import tile_image
+    from robosimgs_tpu_torch.render.kernels import (composite_bwd,
+                                                    composite_bwd_plain,
+                                                    composite_fwd,
+                                                    composite_fwd_plain)
+    from robosimgs_tpu_torch.render.mesh_raster import rasterize_mesh
+    from robosimgs_tpu_torch.render.project import project
+    from robosimgs_tpu_torch.render.rasterize import rasterize
+    from robosimgs_tpu_torch.render.tiles import num_tiles
+    from robosimgs_tpu_torch.tools import ab_features, flagship
+    from robosimgs_tpu_torch.tools import policy_multidof as pm
+    from robosimgs_tpu_torch.tools.workloads import time_ms
+    from robosimgs_tpu_torch.train.trainer import make_train_step
+
+    t15 = time.perf_counter()
+    # 15a. the flagship at full width
+    t0 = time.perf_counter()
+    scene, frames = flagship.build_scene(11, 48, 512, device=dev)
+    torch.cuda.synchronize()
+    scene_s = time.perf_counter() - t0
+    trainer, n_init = flagship.make_trainer(iters=7000, device=dev,
+                                            frames=frames, scene=scene)
+    cfg = trainer.cfg.render
+    res = frames[0].camera.width
+    log(f"[15 at scale] {smi}: flagship {len(frames)} mesh-raster targets "
+        f"{res}x{res} in {scene_s:.2f} s (zero truncated triangles and "
+        f"overflowed tiles); {len(trainer.frames)} train / "
+        f"{len(trainer.eval_frames)} held out, {n_init} initial points in a "
+        f"{trainer.state.gaussians.capacity} pool, K={cfg.tile_capacity}, "
+        f"M={cfg.max_tiles_per_gaussian}")
+    binned = []
+
+    def on_log(m):
+        # the step's view binned once more on the state after the step
+        cam = trainer.frames[m["step"] % len(trainer.frames)].camera
+        with torch.no_grad():
+            st = bin_and_gather_packed(
+                project(trainer.state.gaussians, cam, cfg),
+                res, res, cfg)[3]
+        binned.append((int(st.overflowed_tiles),
+                       int(st.truncated_gaussians)))
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    composite_fwd.launches = composite_bwd.launches = 0
+    t0 = time.perf_counter()
+    trainer.run(iterations=FLAGSHIP_STEPS, progress=False, on_log=on_log)
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = (composite_fwd.launches, composite_bwd.launches)
+    peak = torch.cuda.max_memory_allocated()
+    hist = trainer.history
+    for h, (over, trunc) in zip(hist, binned):
+        log(f"  step {h['step']:4d}: loss {h['loss']:.6f} psnr "
+            f"{h['psnr']:.4f} alive {int(h['n_alive'])} overflow "
+            f"{int(h['overflow'])} (that state on that view: {over} tiles "
+            f"past K, {trunc} truncated Gaussians)")
+    alive = int(trainer.state.gaussians.num_alive)
+    log(f"  {FLAGSHIP_STEPS} steps in {run_s:.2f} s host wall "
+        f"({run_s / FLAGSHIP_STEPS * 1e3:.4f} ms a step, "
+        f"{FLAGSHIP_STEPS / run_s:.4f} it/s, with {len(hist)} log lines' "
+        f"extra binning), launches {launches}, peak memory "
+        f"{peak / 2**30:.3f} GiB ({peak} B), alive after the densify rounds "
+        f"{alive}")
+    # the step alone: CUDA events and host wall on a copy of the state,
+    # and the device's idle share over 10 profiled steps
+    step_fn, st = make_train_step(trainer.cfg, trainer.impl), trainer.state
+    tgt = torch.from_numpy(trainer.frames[0].image).to(dev)
+    cam0 = trainer.frames[0].camera
+
+    def train_step():
+        nonlocal st
+        st, _ = step_fn(st, cam0, tgt)
+
+    step_ms = time_ms(train_step, reps=20, warmup=2)
+    step_wall = wall_ms(train_step, 20)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(10):
+            train_step()
+        torch.cuda.synchronize()
+        prof_wall = (time.perf_counter() - t0) * 1e3
+    busy, summed, n_ops = trace_busy(prof)
+    log(f"  the step: {step_ms:.4f} ms (CUDA events, 20 steps), host wall "
+        f"{step_wall:.4f} ms; 10 profiled steps {prof_wall:.2f} ms wall, "
+        f"device busy {busy:.2f} ms (union; {summed:.2f} ms summed over "
+        f"{n_ops} operations), idle share {1 - busy / prof_wall:.4f} of the "
+        f"profiled wall, {1 - busy / 10 / step_wall:.4f} of the unprofiled "
+        f"host wall")
+    ops = device_ops(prof, 10, "flagship train step")
+    del st
+    eval_psnr = trainer.eval_psnr()
+    first, last = hist[0], hist[-1]
+    log(f"  held-out PSNR after {FLAGSHIP_STEPS} steps: {eval_psnr:.4f} dB; "
+        f"train PSNR step {first['step']} {first['psnr']:.4f} -> step "
+        f"{last['step']} {last['psnr']:.4f} (the JAX package's history: "
+        f"14.10 -> 27.14 at the same steps)")
+    if not all(np.isfinite(h["loss"]) for h in hist):
+        raise AssertionError("the flagship loss is not finite")
+    if last["psnr"] < first["psnr"] + 6.0:
+        raise AssertionError("the flagship's PSNR rose less than 6 dB")
+    if alive <= 20_000:
+        raise AssertionError(f"{alive} alive after the densify rounds")
+    if launches != (FLAGSHIP_STEPS, FLAGSHIP_STEPS):
+        raise AssertionError(f"flagship launches {launches}, not one of "
+                             "each kernel a step")
+
+    # both kernels against their plain versions on the trained state, at
+    # the flagship shape (the first training view)
+    with torch.no_grad():
+        geom, feat, counts, stats = bin_and_gather_packed(
+            project(trainer.state.gaussians, cam0, cfg), res, res, cfg)
+        T, K = geom.shape[0], geom.shape[2]
+        tx = num_tiles(res, res, cfg.tile_size)[0]
+        kw = dict(tiles_x=tx, cfg=cfg, has_dlim=False)
+        fwd = composite_fwd(geom, feat, counts, None, **kw)
+        torch.cuda.synchronize()
+        log(f"  flagship blocks: T={T} P={cfg.tile_size ** 2} K={K} f32, "
+            f"{int(stats.overflowed_tiles)} tiles past K, max tile count "
+            f"{int(stats.max_tile_count)}, {int(stats.total_pairs)} pairs; "
+            f"{nblk_histogram(fwd[2])}")
+        fwd_err = compare_fwd(fwd, composite_fwd_plain(
+            geom, feat, counts, None, **kw), "flagship",
+            (geom, counts, None, kw))[0]
+        gout = torch.randn(fwd[0].shape, generator=torch.Generator()
+                           .manual_seed(15)).to(dev)
+        args = (geom, feat, counts, None, gout, *fwd[1:])
+        bwd_err = compare_bwd(composite_bwd(*args, **kw),
+                              composite_bwd_plain(*args, **kw),
+                              "bwd flagship")
+        fwd_ms = time_ms(lambda: composite_fwd(geom, feat, counts, None,
+                                               **kw), reps=100)
+        fwd_plain_ms = time_ms(lambda: composite_fwd_plain(
+            geom, feat, counts, None, **kw), reps=2, warmup=1)
+        bwd_ms = time_ms(lambda: composite_bwd(*args, **kw), reps=100)
+        bwd_plain_ms = time_ms(lambda: composite_bwd_plain(*args, **kw),
+                               reps=2, warmup=1)
+        fb_ms, fb_by, fb_detail, work = fwd_bound(geom, counts, fwd[2], None,
+                                                  tx, cfg)
+        bb_ms, bb_by, bb_detail = bwd_bound(geom, counts, fwd[2], None, tx,
+                                            cfg, work)
+    log(f"  composite_fwd {fwd_ms:.4f} ms, plain {fwd_plain_ms:.4f} ms; bound "
+        f"{fb_ms:.6f} ms ({fb_detail}), share {fb_ms / fwd_ms:.4f}; library "
+        f"call: none ({smi})")
+    log(f"  composite_bwd {bwd_ms:.4f} ms, plain {bwd_plain_ms:.4f} ms; bound "
+        f"{bb_ms:.6f} ms ({bb_detail}), share {bb_ms / bwd_ms:.4f}; library "
+        f"call: none ({smi})")
+    del trainer, frames, geom, feat, counts, fwd, gout, args
+    log(f"  15a {time.perf_counter() - t15:.1f} s")
+
+    # 15b. the seven feature arms
+    t15b = time.perf_counter()
+    scene, frames = flagship.build_scene(11, 24, 512, with_depth=True,
+                                         device=dev)
+    eval_f = flagship.holdout_split(frames, 4)[1]
+    # each arm's initial pool (the same points) through its own renderer
+    g0 = Gaussians.from_points(
+        flagship.init_points(scene, min(8_000, 100_000 // 4)), sh_degree=2,
+        capacity=100_000, device=dev)
+    bg = torch.ones(3, device=dev)
+    with torch.no_grad():
+        psnr0 = {name: float(np.mean([psnr(rasterize(
+            g0, f.camera, c.render, background=bg)["rgb"],
+            torch.from_numpy(f.image).to(dev)) for f in eval_f]))
+            for name, c in ab_features.arm_configs(AB_STEPS).items()}
+    del g0
+    composite_fwd.launches = composite_bwd.launches = 0
+    with tempfile.TemporaryDirectory() as tmp:
+        ab = ab_features.run(os.path.join(tmp, "ab.json"), iters=AB_STEPS,
+                             frames=frames, scene=scene, device=dev,
+                             progress=False)
+    ab_launches = (composite_fwd.launches, composite_bwd.launches)
+    for name, row in ab["arms"].items():
+        log(f"  {name}: {row}; {ab['seconds'][name] / AB_STEPS * 1e3:.4f} "
+            f"ms a step (host wall); held-out PSNR of its initial pool "
+            f"{psnr0[name]:.4f} dB")
+    log(f"  launches "
+        f"{ab_launches} ({len(ab['arms'])} x {AB_STEPS} steps + "
+        f"{len(eval_f)} held-out renders an arm); 15b "
+        f"{time.perf_counter() - t15b:.1f} s")
+    bad = [n for n, r in ab["arms"].items()
+           if not np.isfinite(r["final_loss"]) or r["eval_psnr"] <= psnr0[n]]
+    if bad or list(ab["arms"]) != list(ab_features.ARMS):
+        raise AssertionError(f"feature arms failed: {bad}")
+    del frames, scene
+
+    # 15c. the 2-DOF policy
+    t15c = time.perf_counter()
+    with tempfile.TemporaryDirectory() as tmp:
+        obj = pm.write_object(tmp)
+        bg = pm.background(dev)
+        rng = np.random.default_rng(0)
+        composite_fwd.launches = 0
+        t0 = time.perf_counter()
+        ds = pm.make_dataset(obj, bg, rng, POLICY_EPISODES, 36, tmp,
+                             progress=False)
+        data_s = time.perf_counter() - t0
+        pol_launches = composite_fwd.launches
+        t0 = time.perf_counter()
+        tr = pm.train(ds, POLICY_STEPS, dev, progress=False)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        composite_fwd.launches = 0
+        t0 = time.perf_counter()
+        succ, finals = pm.closed_loop(tr, obj, bg, rng, POLICY_EVAL, 36, 50,
+                                      progress=False)
+        eval_s = time.perf_counter() - t0
+        loop_launches = composite_fwd.launches
+        # the forward against its plain version at the 2-DOF frame's shape
+        # (both joints at their targets, the evaluation's camera, the
+        # meshes' depth limit as render_rollout merges it)
+        cam = Camera.look_at(pm.BASE_EYE, pm.CENTER, [0, 0, 1], 55.0, pm.RES,
+                             pm.RES, device=dev)
+        rcfg = pm.RENDER
+        tx, ty = num_tiles(pm.RES, pm.RES, rcfg.tile_size)
+        with torch.no_grad():
+            m_out = merge_mesh_layers([
+                {k: o[k] for k in ("rgb", "depth", "mask", "face_id")}
+                for o in (rasterize_mesh(v, f, cam, vertex_colors=c)
+                          for v, f, c in obj.posed_meshes(pm.TARGETS_Q,
+                                                          device=dev))])
+            geom, feat, counts, _ = bin_and_gather_packed(
+                project(bg, cam, rcfg), pm.RES, pm.RES, rcfg)
+            dlim = tile_image(m_out["depth"], tx, ty, rcfg.tile_size,
+                              pad_value=float("inf"))[..., None].contiguous()
+            kw = dict(tiles_x=tx, cfg=rcfg, has_dlim=True)
+            got = composite_fwd(geom, feat, counts, dlim, **kw)
+            torch.cuda.synchronize()
+            pol_err = compare_fwd(got, composite_fwd_plain(
+                geom, feat, counts, dlim, **kw), "2-DOF frame 64x64 mesh "
+                "depth limit", (geom, counts, dlim, kw))[0]
+            pol_ms = time_ms(lambda: composite_fwd(geom, feat, counts, dlim,
+                                                   **kw), reps=200)
+            pol_plain_ms = time_ms(lambda: composite_fwd_plain(
+                geom, feat, counts, dlim, **kw), reps=10)
+            pb_ms, pb_by, pb_detail, _ = fwd_bound(geom, counts, got[2], dlim,
+                                                   tx, rcfg)
+    log(f"  composite_fwd at the 2-DOF shape (T={geom.shape[0]}, "
+        f"K={geom.shape[2]}, mesh depth limit) {pol_ms:.4f} ms, plain "
+        f"{pol_plain_ms:.4f} ms; bound {pb_ms:.6f} ms ({pb_detail}), share "
+        f"{pb_ms / pol_ms:.4f}; library call: none ({smi})")
+    n_frames = len(ds.images)
+    losses = [h["loss"] for h in tr.history]
+    log(f"  2-DOF policy: {POLICY_EPISODES} episodes, {n_frames} frames "
+        f"{pm.RES}x{pm.RES} in {data_s:.2f} s ({n_frames / data_s:.2f} "
+        f"frames/s), forward launches {pol_launches}; {POLICY_STEPS} policy "
+        f"steps {train_s / POLICY_STEPS * 1e3:.4f} ms a step (host wall), "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f}; {POLICY_EVAL} closed-loop "
+        f"episodes {eval_s / POLICY_EVAL:.3f} s each at 50 DDIM steps, "
+        f"success {succ}, final {finals}, forward launches {loop_launches}")
+    if pol_launches != n_frames or n_frames != POLICY_EPISODES * 36:
+        raise AssertionError(f"{pol_launches} forward launches for "
+                             f"{n_frames} frames")
+    if not np.isfinite(ds.images).all() or not losses[-1] < losses[0]:
+        raise AssertionError(f"the 2-DOF policy did not train: {losses}")
+    if loop_launches != POLICY_EVAL * 37:
+        raise AssertionError(f"{loop_launches} closed-loop forward launches")
+    log(f"  15c {time.perf_counter() - t15c:.1f} s; phase 15 "
+        f"{time.perf_counter() - t15:.1f} s")
+    return dict(launches=launches, fwd_ms=fwd_ms, fwd_plain_ms=fwd_plain_ms,
+                fwd_bound_ms=fb_ms, fwd_bound_by=fb_by,
+                fwd_max_abs_err=fwd_err, bwd_ms=bwd_ms,
+                bwd_plain_ms=bwd_plain_ms, bwd_bound_ms=bb_ms,
+                bwd_bound_by=bb_by, bwd_max_abs_err=bwd_err,
+                policy_launches=pol_launches, policy_ms=pol_ms,
+                policy_plain_ms=pol_plain_ms, policy_bound_ms=pb_ms,
+                policy_bound_by=pb_by, policy_max_abs_err=pol_err,
+                step_ms=step_ms, transpose_ms=ops["transpose_ms"])
 
 
 def multidevice(dev, smi: str) -> dict:
@@ -2632,18 +2979,20 @@ def nblk_histogram(nblk) -> str:
 def device_ops(prof, n: int, tag: str, top: int = 8) -> dict:
     """Logs a profile of n steps by device operation (kernels, copies,
     sets; self time a step) and returns {"total_ms", "transpose_ms",
-    "top"}: transpose_ms is the row gather's autograd transpose (PyTorch's
-    indexing_backward kernels)."""
+    "top"}: transpose_ms is the row gather's transpose, the device time
+    of what binning's _GatherRows backward ran."""
     import torch
     events = [e for e in prof.key_averages()
               if e.device_type == torch.autograd.DeviceType.CUDA
               and e.self_device_time_total > 0]
     total = sum(e.self_device_time_total for e in events) / 1e3 / n
-    transpose = sum(e.self_device_time_total for e in events
-                    if "indexing_backward" in e.key) / 1e3 / n
+    transpose = sum(
+        e.device_time_total for e in prof.events()
+        if e.name == "autograd::engine::evaluate_function: "
+                     "_GatherRowsBackward") / 1e3 / n
     log(f"  {tag}: device time {total:.4f} ms a step over "
         f"{sum(e.count for e in events) / n:.0f} operations; the gather's "
-        f"transpose (indexing_backward) {transpose:.4f} ms, share "
+        f"transpose (_GatherRows backward) {transpose:.4f} ms, share "
         f"{transpose / max(total, 1e-12):.3f}")
     rows = []
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:top]:

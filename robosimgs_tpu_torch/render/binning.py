@@ -194,6 +194,37 @@ def pack16(proj: Projected) -> torch.Tensor:
     ], dim=1)
 
 
+class _GatherRows(torch.autograd.Function):
+    """packed[sel] (the (T, K) gather of the packed binner), whose
+    backward sums each Gaussian's gradient rows over its kept entries.
+    pos (n, M): rank r's entries' positions in the flattened (T, K), T*K
+    (a zero row) where not kept, in ascending order (its tiles ascend),
+    which is the order in which autograd's own transpose (index_put_
+    with accumulate) adds them, so the sums are the same bits. That
+    transpose also adds every padding slot's zero into order[0]'s row,
+    one after another (~0.2-0.3 us a slot on an H100), which dominates a
+    step whose tiles are mostly padding; here the padding slots are
+    never read."""
+
+    @staticmethod
+    def forward(ctx, packed, sel, order, pos):
+        ctx.save_for_backward(order, pos)
+        return packed[sel]
+
+    @staticmethod
+    def backward(ctx, grad):
+        order, pos = ctx.saved_tensors
+        rows = torch.cat([grad.reshape(-1, grad.shape[-1]),
+                          grad.new_zeros((1, grad.shape[-1]))])
+        acc = torch.zeros((pos.shape[0], rows.shape[1]), dtype=rows.dtype,
+                          device=rows.device)
+        for m in range(pos.shape[1]):
+            acc = acc + rows[pos[:, m]]
+        out = torch.empty_like(acc)
+        out[order] = acc
+        return out, None, None, None
+
+
 def bin_and_gather_packed(proj: Projected, width: int, height: int,
                           cfg: RenderConfig, return_sel: bool = False):
     """Bin splats into tiles and gather each tile's depth-ordered rows.
@@ -281,7 +312,7 @@ def bin_and_gather_packed(proj: Projected, width: int, height: int,
     else:
         packed_key = ((tid << bits) | rank[:, None]).reshape(-1)
     L = packed_key.shape[0]
-    s_key = torch.sort(packed_key).values
+    s_key, s_perm = torch.sort(packed_key)
     # per-tile bounds: the first key at or past (tile << bits)
     bounds = torch.searchsorted(
         s_key, torch.arange(T + 1, device=dev) << bits)
@@ -299,7 +330,24 @@ def bin_and_gather_packed(proj: Projected, width: int, height: int,
     kmask = k_ar[None, :] < counts[:, None]
     sel = order[torch.where(kmask, sel_rank, torch.zeros_like(sel_rank))]
 
-    gathered = packed[sel]                               # (T, K, 16)
+    if packed.requires_grad:
+        # each entry's (tile, slot) position in the (T, K) blocks, T*K
+        # where it is a sentinel or past its tile's capacity
+        j = torch.arange(L, device=dev)
+        s_tile = s_key >> bits
+        slot = j - bounds[torch.clamp_max(s_tile, T)]
+        flat = torch.where((s_tile < T) & (slot < K), s_tile * K + slot,
+                           T * K)
+        flat = torch.empty_like(flat).scatter_(0, s_perm, flat)
+        if two_tier:
+            pos = torch.full((n, M), T * K, dtype=flat.dtype, device=dev)
+            pos[:, :Ms] = flat[:n * Ms].view(n, Ms)
+            pos[spill_idx, Ms:] = flat[n * Ms:].view(-1, M - Ms)
+        else:
+            pos = flat.view(n, -1)
+        gathered = _GatherRows.apply(packed, sel, order, pos)
+    else:
+        gathered = packed[sel]                           # (T, K, 16)
     # padding entries must be inert: zero their opacity column
     op = torch.where(kmask, gathered[:, :, 5], torch.zeros_like(gathered[:, :, 5]))
     gathered = torch.cat([gathered[:, :, :5], op[:, :, None],

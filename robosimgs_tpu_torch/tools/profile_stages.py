@@ -13,7 +13,8 @@ projection; binning's sub-stages as `bin_and_gather_packed` runs them
 (the depth argsort, the permute of the narrow bbox inputs, the tile ids
 with the exact cull and the row compaction, the int64 key pack, the key
 sort, searchsorted, the selection window, the packed feature gather);
-the transpose of the gather (the backward's scatter); binning whole;
+the transpose of the gather (binning's backward as the train step runs
+it: each Gaussian's rows summed over its kept entries); binning whole;
 each compositing kernel; L1 + SSIM forward and backward; the per-group
 Adam update; the forward render, a value-and-grad and the train step
 (train/trainer.py's make_train_step), end to end.
@@ -37,6 +38,7 @@ from __future__ import annotations
 
 import argparse
 import collections
+import dataclasses
 import json
 import math
 import sys
@@ -202,10 +204,12 @@ def stage_fns(g, cam, cfg: RenderConfig, target: torch.Tensor):
     kw = dict(tiles_x=tiles_x, cfg=cfg, has_dlim=False)
     fwd = composite_fwd(geom, feat, counts, None, **kw)
     gout = torch.ones_like(fwd[0])
-    # the transpose alone: the gather's autograd backward on a kept graph
-    packed = pack16(proj).detach().requires_grad_()
-    gathered = packed[sel]
-    ct = torch.ones_like(gathered)
+    # the transpose alone: binning's backward on a kept graph, to one
+    # leaf of the packed rows (its other inputs need no gradient)
+    leaf = proj.means2d.detach().requires_grad_()
+    blocks = bin_and_gather_packed(dataclasses.replace(proj, means2d=leaf),
+                                   W, H, cfg)[:2]
+    ct = [torch.ones_like(b) for b in blocks]
     img = torch.full((H, W, 3), 0.3, device=dev, requires_grad=True)
     optimizer = make_optimizer()
     params = float_params(g)
@@ -220,7 +224,7 @@ def stage_fns(g, cam, cfg: RenderConfig, target: torch.Tensor):
     return ([("project", no_grad(lambda: project(g, cam, cfg)))]
             + [(name, no_grad(fn)) for name, fn in binning]
             + [("gather-transpose(bwd)", lambda: torch.autograd.grad(
-                gathered, packed, ct, retain_graph=True)),
+                blocks, leaf, ct, retain_graph=True)),
                ("bin_and_gather(fused)", no_grad(
                    lambda: bin_and_gather_packed(proj, W, H, cfg))),
                ("composite_fwd", lambda: composite_fwd(geom, feat, counts,

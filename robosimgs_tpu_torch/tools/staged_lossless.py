@@ -35,7 +35,7 @@ were measured on its own jax.random draw; this draw is another, so:
   4. One gradient of the photometric loss at K 384 two-tier against one
      at the lossless K: the largest |difference| and the gradient scale,
      reported and not gated; the lossless gradient's host wall and the
-     time of the row gather's autograd transpose in it (profiled).
+     time of the row gather's transpose in it (profiled).
   5. The train step (make_train_step) single-tier at K 1,024, two-tier
      at K 512 and at K 384: ms, Gaussians/s and peak memory, zero
      truncation asserted on the initial state, after each warm-up step
@@ -236,10 +236,11 @@ def staged_lossless(g, cam, m: int = STAGED_M, bbox: int = STAGED_BBOX,
         lossless_grad_ms = (time.perf_counter() - t0) * 1e3
     transpose_ms = None
     if dev.type == "cuda":
+        # what binning's _GatherRows backward ran on the device
         transpose_ms = sum(
-            e.self_device_time_total for e in prof.key_averages()
-            if e.device_type == torch.autograd.DeviceType.CUDA
-            and "indexing_backward" in e.key) / 1e3
+            e.device_time_total for e in prof.events()
+            if e.name == "autograd::engine::evaluate_function: "
+                         "_GatherRowsBackward") / 1e3
     diff, scale = grad_delta(g_staged, g_ref)
     del g_staged, g_ref, prof
     log(f"gradient {staged_name} against {ref}: max |difference| "

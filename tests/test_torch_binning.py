@@ -102,3 +102,65 @@ def test_cull_keep_matches_jax(jax_proj):
                      1.0 / 255.0)
     assert 0 < want.sum() < want.size, "cull decides nothing"
     np.testing.assert_array_equal(got.numpy(), want)
+
+
+# the tiled compositor needs K in whole 128-splat batches; wide splats
+# ("wide") overflow K = 128 and truncate at M = 3
+SEGMENT_CASES = {
+    "default": (dict(tile_capacity=256), False),
+    "bench": (CONFIGS["bench"], False),
+    "overflow": (dict(tile_capacity=128, max_tiles_per_gaussian=16), True),
+    "spill": (CONFIGS["spill"], True),
+    "bbox": (dict(tile_capacity=128, max_tiles_per_gaussian=3,
+                  bbox_tiles_per_gaussian=12), True),
+}
+
+
+def autograd_gather(packed, sel, order, pos):
+    """_GatherRows.apply as autograd's own gather: its transpose is
+    index_put_ with accumulate over every (tile, slot), padding too."""
+    return packed[sel]
+
+
+@pytest.mark.parametrize("name", list(SEGMENT_CASES))
+def test_segment_transpose_keeps_the_gradient_bits(name, monkeypatch):
+    """The gather's gradient as each Gaussian's sum over its kept
+    entries (binning._GatherRows) gives every parameter's gradient,
+    through the tiled compositor's plain backward, the same bits as
+    autograd's transpose of packed[sel], with truncated splats,
+    overflowed tiles and a spill tier."""
+    from robosimgs_tpu_torch.core.camera import Camera
+    from robosimgs_tpu_torch.core.types import Gaussians
+    from robosimgs_tpu_torch.render import binning
+    from robosimgs_tpu_torch.render.project import project
+    from robosimgs_tpu_torch.render.tiled import composite_tiled
+    kw, wide = SEGMENT_CASES[name]
+    cfg = RenderConfig(**kw)
+    g = Gaussians.random(torch.Generator().manual_seed(4), 400, sh_degree=1,
+                         capacity=408, device="cpu")
+    if wide:
+        g = g.replace(log_scales=torch.full_like(g.log_scales, np.log(0.1)))
+    cam = Camera.look_at([3.0, 0.5, 1.0], [0, 0, 0], [0, 0, 1], 55.0, W, H,
+                         device="cpu")
+    w = torch.randn((H, W, 3), generator=torch.Generator().manual_seed(5))
+    fields = ("means", "quats", "log_scales", "logit_opacities", "sh_dc",
+              "sh_rest")
+    grads = []
+    for reference in (True, False):
+        with monkeypatch.context() as mp:
+            if reference:
+                mp.setattr(binning._GatherRows, "apply", autograd_gather)
+            params = {k: getattr(g, k).clone().requires_grad_(True)
+                      for k in fields}
+            out = composite_tiled(project(g.replace(**params), cam, cfg),
+                                  W, H, cfg, return_stats=True)
+            grads.append(torch.autograd.grad((out["rgb"] * w).sum(),
+                                             list(params.values())))
+        st = out["stats"]
+    if name == "overflow":
+        assert int(st.overflowed_tiles) > 0
+    if name in ("spill", "bbox"):
+        assert int(st.truncated_gaussians) > 0
+    for k, a, b in zip(fields, *grads):
+        assert torch.equal(a, b), k
+        assert bool((a != 0).any()), k

@@ -707,3 +707,34 @@ def test_policy_forward_and_train_step_on_card_match_cpu(device, ss):
     assert tr.count == 3 and tr.model.denoiser.out.weight.is_cuda
     assert not torch.equal(tr.model.denoiser.out.weight, w0)
     assert not torch.equal(tr.ema_model.denoiser.out.weight, w0)
+
+
+@pytest.mark.parametrize("kw", [dict(), dict(tile_capacity=128),
+                                dataclasses.asdict(CFG)],
+                         ids=["default", "overflow", "bench"])
+def test_segment_transpose_keeps_the_gradient_bits(device, kw, monkeypatch):
+    """The gather's gradient as each Gaussian's sum over its kept
+    entries (binning._GatherRows), through both kernels: every
+    parameter's gradient bit-equal to autograd's transpose of
+    packed[sel]."""
+    from robosimgs_tpu_torch.render import binning
+    cfg = RenderConfig(**kw)
+    g, cam = _scene(device)
+    w = torch.randn((cam.height, cam.width, 3),
+                    generator=torch.Generator().manual_seed(5)).to(device)
+    fields = ("means", "quats", "log_scales", "logit_opacities", "sh_dc",
+              "sh_rest")
+    grads = []
+    for reference in (True, False):
+        with monkeypatch.context() as mp:
+            if reference:
+                mp.setattr(binning._GatherRows, "apply",
+                           lambda packed, sel, order, pos: packed[sel])
+            params = {k: getattr(g, k).clone().requires_grad_(True)
+                      for k in fields}
+            out = rasterize(g.replace(**params), cam, cfg, impl="tiled")
+            grads.append(torch.autograd.grad((out["rgb"] * w).sum(),
+                                             list(params.values())))
+    for k, a, b in zip(fields, *grads):
+        assert torch.equal(a, b), k
+        assert bool((a != 0).any()), k
