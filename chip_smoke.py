@@ -203,6 +203,25 @@ Phases, each of which raises on a fault (nothing is caught):
                closed-loop episodes at 50 DDIM steps, the forward
                against its plain version at its frame's shape (64x64,
                T 16, K 256, the meshes' depth limit), timed and bounded
+ 16. last runs — the repo's last runs that need no reference files,
+               through the port's tools: profile_rollout on the
+               Gaussian-only rollout frame (200k Gaussians, 4 x 640x480,
+               no mesh; 5 iterations): the stage split, one camera /
+               four sequential / one batched frame (4 and 1 forward
+               launches), no truncation at M 64 / bbox 84 on any camera,
+               K 2,048 / 1,024 / 512 and rollout_gate384's 384 >= 60 dB
+               against K 8,192, the r4 config truncating, the forward
+               against its plain version at K 512, at K 8,192 and
+               batched, timed and bounded; staged_cover_stats on the
+               rollout draw's cameras (the demand sums to the pairs, M
+               64 / bbox 84 cover the maxima); ring_at_scale on 8 gloo
+               ranks on the card at 524,288 and 1,048,576 Gaussians (ring
+               against all_gather within 1e-6 / 1e-5, one launch of each
+               kernel a step, each rank's peak bytes, the render law at
+               world 2 / 4 / 8), both kernels against their plain
+               versions on rank 0's merged blocks at 1M; the 8-rank
+               multihost rehearsal on a (2, 4) mesh against one process;
+               train_masknet 50 steps at 96 px (the loss falls)
 The line before the last lists the kernels; the last line is the result.
 Exits non-zero without a CUDA device.
 """
@@ -1099,6 +1118,10 @@ def main() -> int:
     # 15. the at-scale runs: the flagship, the feature arms, the 2-DOF
     # policy
     big = at_scale(dev, smi)
+    # 16. the last runs: the Gaussian-only rollout frame and its gates, the
+    # cover statistics, the ring at scale, the multi-process rehearsal,
+    # the mask model's trainer
+    last = last_runs(dev, smi)
     log(f"  total {time.perf_counter() - t_start:.1f} s")
 
     log(json.dumps({"kernels": [{
@@ -1111,7 +1134,9 @@ def main() -> int:
             left["tile32_fwd_max_abs_err"], multi["fwd_max_abs_err"],
             feas["fwd_max_abs_err"], meas["unpacked_max_abs_err"],
             meas["staged_fwd_max_abs_err"], meas["lossless_fwd_max_abs_err"],
-            big["fwd_max_abs_err"], big["policy_max_abs_err"]),
+            big["fwd_max_abs_err"], big["policy_max_abs_err"],
+            last["gsonly_max_abs_err"], last["gsonly_lossless_max_abs_err"],
+            last["gsonly_batch_max_abs_err"], last["ring1m_max_abs_err"]),
         "ms": kernel_ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": None,
         "rollout_launches": roll["launches"], "rollout_ms": roll["ms"],
@@ -1168,14 +1193,23 @@ def main() -> int:
         "policy2dof_plain_ms": big["policy_plain_ms"],
         "policy2dof_bound_ms": big["policy_bound_ms"],
         "policy2dof_bound_by": big["policy_bound_by"],
-        "policy2dof_max_abs_err": big["policy_max_abs_err"]}, {
+        "policy2dof_max_abs_err": big["policy_max_abs_err"],
+        "gsonly_launches": last["launches"],
+        "gsonly_launches_per_frame": [last["frame"]["seq4_launches"],
+                                      last["frame"]["batched4_launches"]],
+        **{f"{p}_{k}": last[f"{p}_{k}"]
+           for p in ("gsonly", "gsonly_lossless", "gsonly_batch", "ring1m")
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                     "max_abs_err")},
+        "ring1m_launches": last["ring_launches"][0]}, {
         "name": "composite_bwd", "route": "cuda",
         "source": "robosimgs_tpu_torch/csrc/composite_bwd.cu",
         "replaces": "robosimgs_tpu/render/pallas_kernels.py:221",
         "launches": launches_train[1], "max_abs_err": max(
             err_bwd, err_32, left["tile32_max_abs_err"],
             multi["bwd_max_abs_err"], feas["bwd_max_abs_err"],
-            meas["staged_bwd_max_abs_err"], big["bwd_max_abs_err"]),
+            meas["staged_bwd_max_abs_err"], big["bwd_max_abs_err"],
+            last["ring1m_bwd_max_abs_err"]),
         "ms": bwd_ms, "plain_ms": bwd_plain_ms, "bound_ms": bwd_bound_ms,
         "bound_by": bwd_bound_by, "library_ms": None,
         "tile32_K": left["tile32_K"], "tile32_ms": left["tile32_ms"],
@@ -1205,7 +1239,11 @@ def main() -> int:
         "flagship_ms": big["bwd_ms"], "flagship_plain_ms": big["bwd_plain_ms"],
         "flagship_bound_ms": big["bwd_bound_ms"],
         "flagship_bound_by": big["bwd_bound_by"],
-        "flagship_max_abs_err": big["bwd_max_abs_err"]}]}))
+        "flagship_max_abs_err": big["bwd_max_abs_err"],
+        "ring1m_launches": last["ring_launches"][1],
+        **{f"ring1m_{k}": last[f"ring1m_bwd_{k}"]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by",
+                     "max_abs_err")}}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0
@@ -1518,6 +1556,267 @@ def at_scale(dev, smi: str) -> dict:
                 policy_plain_ms=pol_plain_ms, policy_bound_ms=pb_ms,
                 policy_bound_by=pb_by, policy_max_abs_err=pol_err,
                 step_ms=step_ms, transpose_ms=ops["transpose_ms"])
+
+
+# phase 16's depth: iterations of each timed rollout frame, the ring's
+# Gaussians (every rank's two steps at each), its render law's worlds and
+# Gaussians, and the mask model's steps
+GS_FRAME_ITERS = 5
+RING_NS = (524_288, 1_048_576)
+LAW_WORLDS, LAW_NS = (2, 4, 8), (131_072, 1_048_576)
+MASKNET_STEPS = 50
+
+
+def last_runs(dev, smi: str) -> dict:
+    """Phase 16: the repo's last runs that need no reference files,
+    through the port's tools. (a) tools/profile_rollout.py on the
+    Gaussian-only rollout frame (200k Gaussians, four 640x480 cameras,
+    no mesh) at GS_FRAME_ITERS iterations, with the rollout config as a
+    variant: the stage split on camera 0, one camera / four sequential /
+    one batched frame (one forward launch a camera, one a batch), every
+    camera at M 64 over an 84-tile bbox without truncation, K 2,048 /
+    1,024 / 512 and (tools/rollout_gate384.py) 384 each >= 60 dB against
+    K 8,192, the r4 config (M 12) truncating; the forward against its
+    plain version at K 512 and K 8,192 on camera 0 and batched, timed and
+    bounded. (b) tools/staged_cover_stats.py on the rollout draw's four
+    cameras: the demand sums to the pairs and M 64 / bbox 84 cover the
+    maxima. (c) tools/ring_at_scale.py: 8 gloo ranks on the card, the
+    ring and the all_gather step at each of RING_NS (finite losses, ring
+    loss0 within 1e-6 and loss1 within 1e-5 relative of all_gather's,
+    one launch of each kernel a step, each rank's peak bytes), the render
+    law at LAW_WORLDS x LAW_NS, both kernels against their plain versions
+    on rank 0's merged ring blocks at the largest N, timed and bounded.
+    (d) tools/multihost_rehearsal.py: 8 ranks on a (2, 4) mesh, every
+    loss equal to the single-process loss. (e) tools/train_masknet.py:
+    MASKNET_STEPS steps at 96 px (the loss falls, the IoU is finite).
+    Returns the numbers of the kernels line."""
+    import numpy as np
+    import torch
+
+    from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
+    from robosimgs_tpu_torch.render.kernels import (composite_bwd,
+                                                    composite_bwd_plain,
+                                                    composite_fwd,
+                                                    composite_fwd_plain)
+    from robosimgs_tpu_torch.render.project import project
+    from robosimgs_tpu_torch.render.tiles import num_tiles
+    from robosimgs_tpu_torch.tools import multihost_rehearsal as mh
+    from robosimgs_tpu_torch.tools import profile_rollout as pr
+    from robosimgs_tpu_torch.tools import ring_at_scale as ras
+    from robosimgs_tpu_torch.tools import rollout_gate384
+    from robosimgs_tpu_torch.tools import staged_cover_stats as scs
+    from robosimgs_tpu_torch.tools import train_masknet as tmk
+    from robosimgs_tpu_torch.tools.workloads import rollout_scene, time_ms
+
+    t16 = time.perf_counter()
+    out = {}
+
+    def held(name, geom, feat, counts, kw, tag, reps=50):
+        """The forward against its plain version on these blocks, its
+        time, its plain version's and its bound (kernels-line keys
+        prefixed with name)."""
+        fwd = composite_fwd(geom, feat, counts, None, **kw)
+        torch.cuda.synchronize()
+        log(f"  {tag}: T={geom.shape[0]} K={geom.shape[2]}; "
+            f"{nblk_histogram(fwd[2])}")
+        err = compare_fwd(fwd, composite_fwd_plain(geom, feat, counts, None,
+                                                   **kw), tag,
+                          (geom, counts, None, kw))[0]
+        ms = time_ms(lambda: composite_fwd(geom, feat, counts, None, **kw),
+                     reps=reps)
+        plain = time_ms(lambda: composite_fwd_plain(geom, feat, counts, None,
+                                                    **kw), reps=2, warmup=1)
+        b_ms, b_by, detail, work = fwd_bound(
+            geom, counts, fwd[2], None, kw["tiles_x"], kw["cfg"],
+            kw.get("n_tiles_per_image", 0))
+        log(f"  composite_fwd {ms:.4f} ms, plain {plain:.4f} ms; bound "
+            f"{b_ms:.6f} ms ({detail}), share {b_ms / ms:.4f}; library "
+            f"call: none ({smi})")
+        out.update({f"{name}_max_abs_err": err, f"{name}_ms": ms,
+                    f"{name}_plain_ms": plain, f"{name}_bound_ms": b_ms,
+                    f"{name}_bound_by": b_by})
+        return fwd, work
+
+    # 16a. the Gaussian-only rollout frame
+    t0 = time.perf_counter()
+    g, cams, rcfg = rollout_scene(dev)
+    W, H = cams[0].width, cams[0].height
+    tx, ty = num_tiles(W, H, rcfg.tile_size)
+    variants = pr.parse_variants(
+        f"rollout_K{rcfg.tile_capacity},k={rcfg.tile_capacity},"
+        f"m={rcfg.max_tiles_per_gaussian},bbox={rcfg.bbox_tiles_per_gaussian}"
+        f",split={rcfg.two_tier_split},frac={rcfg.two_tier_spill_frac!r}")
+    vname = f"rollout_K{rcfg.tile_capacity}"
+    log(f"[16 last runs] {smi}: (a) tools/profile_rollout.py, "
+        f"{g.capacity} Gaussians, {len(cams)} x {W}x{H}, no mesh; variants "
+        f"{list(variants)}")
+    composite_fwd.launches = 0
+    prof = pr.profile_rollout(g, cams, variants, iters=GS_FRAME_ITERS,
+                              log=lambda line: log("  " + line))
+    torch.cuda.synchronize()
+    out["launches"] = composite_fwd.launches
+    gate = prof.pop("gate")
+    del gate["rgb"]
+    g384 = rollout_gate384.gate384(g, cams[0])
+    del g384["rgb"]
+    log(f"  GATE K=384 (m=64) vs K=8192: {g384['gate_K384_dB']:.4f} dB, "
+        f"truncated {g384['truncated']}; profile_rollout "
+        f"{time.perf_counter() - t0:.1f} s, forward launches "
+        f"{out['launches']}")
+    frame = prof[vname]
+    if (frame["one_cam_launches"], frame["seq4_launches"],
+            frame["batched4_launches"]) != (1, len(cams), 1):
+        raise AssertionError(f"frame launches {frame}")
+    dbs = {k: prof[f"gate_K{k}_dB"] for k in pr.GATE_KS}
+    dbs[384] = g384["gate_K384_dB"]
+    low = {k: v for k, v in dbs.items() if not v >= 60.0}
+    if low:
+        raise AssertionError(f"rollout capacity gates below 60 dB: {low}")
+    lossless = {**gate["truncated"], **g384["truncated"]}
+    if any(v for k, v in lossless.items() if k != "r4") \
+            or not gate["truncated"]["r4"] > 0:
+        raise AssertionError(f"truncation at M 64 / the r4 config: "
+                             f"{lossless}")
+    m64 = [variants[vname], pr.mkcfg(512, pr.GATE_M, pr.GATE_BBOX)]
+    with torch.no_grad():
+        per_cam = [[int(bin_and_gather_packed(project(g, c, cfg), W, H,
+                                              cfg)[3].truncated_gaussians)
+                    for cfg in m64] for c in cams]
+    log(f"  truncated Gaussians per camera at M 64 over an 84-tile bbox "
+        f"(rollout config, one tier): {per_cam}; r4 on camera 0: "
+        f"{gate['truncated']['r4']} ({prof['r4_lossy_dB']:.4f} dB)")
+    if any(any(row) for row in per_cam):
+        raise AssertionError("an M-64 config truncates on some camera")
+    out["frame"] = frame
+    # the forward against its plain version on this frame's blocks
+    kw = dict(tiles_x=tx, cfg=variants[vname], has_dlim=False)
+    with torch.no_grad():
+        blocks = [bin_and_gather_packed(project(g, c, kw["cfg"]), W, H,
+                                        kw["cfg"])[:3] for c in cams]
+        held("gsonly", *blocks[0], kw, f"{vname} camera 0, no depth limit")
+        lcfg = pr.mkcfg(pr.K_LOSSLESS, pr.GATE_M, pr.GATE_BBOX, chunk=512)
+        kw_l = dict(tiles_x=tx, cfg=lcfg, has_dlim=False)
+        lossless_blocks = bin_and_gather_packed(project(g, cams[0], lcfg), W,
+                                                H, lcfg)[:3]
+        held("gsonly_lossless", *lossless_blocks, kw_l,
+             f"K{pr.K_LOSSLESS} camera 0, no depth limit", reps=20)
+        del lossless_blocks
+        kw_b = dict(kw, n_tiles_per_image=tx * ty)
+        held("gsonly_batch", *(torch.cat([b[i] for b in blocks])
+                               for i in range(3)), kw_b,
+             f"{vname} batched, {len(cams)} cameras", reps=20)
+    del blocks
+    log(f"  16a {time.perf_counter() - t16:.1f} s")
+
+    # 16b. the rollout draw's covers
+    t0 = time.perf_counter()
+    cov = scs.rollout_cover_stats(g, cams)
+    for r, v in enumerate(cov["views"]):
+        log(f"  (b) camera {r}: max bbox cover {v['max_bbox_cover']}, max "
+            f"survivor cover {v['max_survivor_cover']}, percentiles "
+            f"{v['cover_percentiles']}, pairs {v['total_true_pairs']}, max "
+            f"tile demand {v['max_tile_demand']} (mean "
+            f"{v['mean_tile_demand']:.1f}, p99 {v['p99_tile_demand']}), past "
+            f"the split {v['rows_over_split']}, best two-tier "
+            f"{v['two_tier_lossless'][:2]}")
+    log(f"  maxima over the cameras: bbox {cov['max_bbox_cover']} (config "
+        f"{rcfg.bbox_tiles_per_gaussian}), survivor "
+        f"{cov['max_survivor_cover']} (M {rcfg.max_tiles_per_gaussian}), "
+        f"tile demand {cov['max_tile_demand']}; "
+        f"{time.perf_counter() - t0:.1f} s")
+    if cov["max_survivor_cover"] > rcfg.max_tiles_per_gaussian \
+            or cov["max_bbox_cover"] > rcfg.bbox_tiles_per_gaussian:
+        raise AssertionError("the rollout config's M / bbox miss the draw")
+    del g, cams
+    torch.cuda.empty_cache()
+
+    # 16c. the ring at scale: 8 gloo ranks on the card
+    t0 = time.perf_counter()
+    ring = ras.ring_at_scale("cuda", ns=RING_NS, law_worlds=LAW_WORLDS,
+                             law_ns=LAW_NS, log=lambda line: log("  " + line))
+    rows = {(r["n"], r["gather"]): r for r in ring["executed_steps"]}
+    ring_launches = [0, 0]
+    for n in RING_NS:
+        a, b = rows[(n, "all_gather")], rows[(n, "ring")]
+        e0 = abs(b["loss0"] - a["loss0"]) / abs(a["loss0"])
+        e1 = abs(b["loss1"] - a["loss1"]) / abs(a["loss1"])
+        log(f"  (c) N {n}: ring loss {b['loss0']:.8f} -> {b['loss1']:.8f}, "
+            f"all_gather {a['loss0']:.8f} -> {a['loss1']:.8f} (rel "
+            f"{e0:.3e}, {e1:.3e}); steady step {b['steady_s']:.3f} / "
+            f"{a['steady_s']:.3f} s; peak step bytes a rank ring "
+            f"{max(b['step_bytes'])}, all_gather {max(a['step_bytes'])}")
+        if not all(np.isfinite([a["loss0"], a["loss1"], b["loss0"],
+                                b["loss1"]])) or e0 > 1e-6 or e1 > 1e-5:
+            raise AssertionError(f"the ring at N {n} differs from all_gather")
+        for row in (a, b):
+            if any(list(x) != [2, 2] for x in row["launches"]):
+                raise AssertionError(f"ring_at_scale launches {row}")
+            for x in row["launches"]:
+                ring_launches[0] += x[0]
+                ring_launches[1] += x[1]
+    for row in ring["render_path_peak_bytes_per_rank"]:
+        log(f"  render law world {row['devices']} N {row['n']}: peak bytes "
+            f"a rank ring {max(row['ring_peak_bytes'])}, all_gather "
+            f"{max(row['all_gather_peak_bytes'])}")
+    log(f"  ring_at_scale {time.perf_counter() - t0:.1f} s")
+    out["ring_launches"] = ring_launches
+    # both kernels on rank 0's merged blocks at the largest N
+    rb = ring["blocks"]
+    cfg_r = ras.train_config().render
+    geom, feat = (torch.from_numpy(rb[k]).to(dev) for k in ("geom", "feat"))
+    counts = torch.from_numpy(rb["counts"]).to(dev)
+    kw_r = dict(tiles_x=num_tiles(ras.RES, ras.RES, cfg_r.tile_size)[0],
+                cfg=cfg_r, has_dlim=False)
+    with torch.no_grad():
+        fwd, work = held("ring1m", geom, feat, counts, kw_r,
+                         f"ring merged blocks at N {rb['n']} (rank 0)",
+                         reps=200)
+        gout = torch.randn(fwd[0].shape, generator=torch.Generator()
+                           .manual_seed(16)).to(dev)
+        args = (geom, feat, counts, None, gout, *fwd[1:])
+        out["ring1m_bwd_max_abs_err"] = compare_bwd(
+            composite_bwd(*args, **kw_r), composite_bwd_plain(*args, **kw_r),
+            "bwd on the ring's merged blocks")
+        out["ring1m_bwd_ms"] = time_ms(lambda: composite_bwd(*args, **kw_r),
+                                       reps=200)
+        out["ring1m_bwd_plain_ms"] = time_ms(
+            lambda: composite_bwd_plain(*args, **kw_r), reps=5)
+        bb_ms, bb_by, bb_detail = bwd_bound(geom, counts, fwd[2], None,
+                                            kw_r["tiles_x"], cfg_r, work)
+    out["ring1m_bwd_bound_ms"], out["ring1m_bwd_bound_by"] = bb_ms, bb_by
+    log(f"  composite_bwd {out['ring1m_bwd_ms']:.4f} ms, plain "
+        f"{out['ring1m_bwd_plain_ms']:.4f} ms; bound {bb_ms:.6f} ms "
+        f"({bb_detail}), share {bb_ms / out['ring1m_bwd_ms']:.4f}; library "
+        f"call: none ({smi})")
+
+    # 16d. the multi-process rehearsal
+    t0 = time.perf_counter()
+    mh_res = mh.rehearse(*mh.build_problem("cpu"), device="cuda")
+    ref = mh_res["single_process_loss"]
+    log(f"  (d) multihost_rehearsal: {mh_res['processes']} ranks over "
+        f"{mh_res['backend']}, mesh {mh_res['mesh']}: losses "
+        f"{sorted(set(mh_res['losses']))}, single process {ref:.8f} (max "
+        f"rel {max(abs(x - ref) for x in mh_res['losses']) / abs(ref):.3e}"
+        f", bound {mh.RTOL}), data rows outermost "
+        f"{mh_res['data_rows_outermost']}; {time.perf_counter() - t0:.1f} s")
+    if not mh_res["match"]:
+        raise AssertionError("a rank's loss differs from one process's")
+
+    # 16e. the mask model's trainer
+    t0 = time.perf_counter()
+    mk = tmk.run(MASKNET_STEPS, 96, device=dev, log=lambda line: log(
+        "  " + line) if not line.startswith("scene ") else None)
+    first, last = (float(np.mean(mk["losses"][s])) for s in (
+        slice(0, 10), slice(-10, None)))
+    log(f"  (e) train_masknet {MASKNET_STEPS} steps at 96 px: loss (mean of "
+        f"10) {first:.4f} -> {last:.4f}, held-out IoU "
+        f"{mk['holdout_iou']:.4f} (checked-in weights "
+        f"{mk['checked_in_holdout_iou']:.4f}), fresh-scene best IoU "
+        f"{mk['mean_best_iou']:.4f}; {time.perf_counter() - t0:.1f} s")
+    if not last < first or not np.isfinite(mk["holdout_iou"]):
+        raise AssertionError("the mask model did not train")
+    log(f"  phase 16 {time.perf_counter() - t16:.1f} s")
+    return out
 
 
 def multidevice(dev, smi: str) -> dict:

@@ -372,17 +372,9 @@ def train_masknet(
     share of open-box-with-hinged-flap scenes; crop_aug: random
     prompt-centered crops."""
     rng = np.random.default_rng(seed)
-
-    def mk(base, s):
-        # 1/3 scan-like low-contrast scenes; flap scenes lean scan-like
-        # harder (2/3)
-        is_flap = (s % 100) < int(flap_frac * 100)
-        scan = (s % 3 != 0) if is_flap else (s % 3 == 2)
-        return make_scene(base + s, size, scan_like=scan, flap=is_flap,
-                          device=device)
-
-    scenes = [mk(1000, s) for s in range(n_scenes)]
-    holdout = [mk(999_000, s) for s in range(12)]
+    scenes = [_train_scene(1000 + s, s, size, flap_frac, device)
+              for s in range(n_scenes)]
+    holdout = holdout_scenes(size, flap_frac, device)
 
     model = MaskUNet(generator=torch.Generator().manual_seed(seed))
     if init_params is not None:
@@ -412,18 +404,42 @@ def train_masknet(
         if progress is not None:
             progress(step)
 
+    params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
+    return MaskNetTrainResult(params=params,
+                              holdout_iou=prompt_iou(model, holdout, device),
+                              losses=losses)
+
+
+def _train_scene(seed: int, s: int, size: int, flap_frac: float, device):
+    """Scene s of a training or held-out set: 1/3 scan-like low-contrast
+    scenes; the first flap_frac of every 100 flap scenes, which lean
+    scan-like harder (2/3)."""
+    is_flap = (s % 100) < int(flap_frac * 100)
+    scan = (s % 3 != 0) if is_flap else (s % 3 == 2)
+    return make_scene(seed, size, scan_like=scan, flap=is_flap, device=device)
+
+
+def holdout_scenes(size: int, flap_frac: float = 0.0, device="cuda"):
+    """train_masknet's 12 held-out scenes (unseen in training) for its
+    flap_frac."""
+    return [_train_scene(999_000 + s, s, size, flap_frac, device)
+            for s in range(12)]
+
+
+def prompt_iou(model: MaskUNet, scenes, device="cuda") -> float:
+    """Mean prompt-mask IoU of `model` over scenes: one prompt each
+    (sample_example drawn from a generator seeded 7), thresholded at
+    0.5."""
     ious = []
     with torch.no_grad():
-        for img, pid in holdout:
+        for img, pid in scenes:
             x, y = sample_example(np.random.default_rng(7), img, pid)
             prob = torch.sigmoid(model(torch.from_numpy(x[None]).to(device)))
             pred = prob[0].cpu().numpy() > 0.5
             inter = (pred & (y > 0.5)).sum()
             union = (pred | (y > 0.5)).sum()
             ious.append(inter / max(union, 1))
-    params = {k: v.detach().cpu() for k, v in model.state_dict().items()}
-    return MaskNetTrainResult(params=params, holdout_iou=float(np.mean(ious)),
-                              losses=losses)
+    return float(np.mean(ious))
 
 
 def save_params(params: dict, path: str = DEFAULT_WEIGHTS) -> None:

@@ -62,16 +62,18 @@ def axis_size(mesh: DeviceMesh, axis: str) -> int:
 def initialize_multihost(coordinator: Optional[str] = None,
                          num_processes: Optional[int] = None,
                          process_id: Optional[int] = None,
-                         device: str = "cuda") -> None:
+                         device: str = "cuda",
+                         backend: Optional[str] = None) -> None:
     """Multi-process bring-up over `tcp://coordinator` (host:port): NCCL
-    for ranks on CUDA devices, gloo when the caller asks for the CPU. A
-    CUDA rank takes card LOCAL_RANK (default process_id) modulo the
-    cards of its host. Does nothing for one process or when a process
-    group exists already."""
+    for ranks on CUDA devices, gloo when the caller asks for the CPU or
+    for gloo (NCCL takes one rank a card). A CUDA rank takes card
+    LOCAL_RANK (default process_id) modulo the cards of its host. Does
+    nothing for one process or when a process group exists already."""
     if num_processes in (None, 1) or dist.is_initialized():
         return
-    backend = "gloo" if torch.device(device).type == "cpu" else "nccl"
-    if backend == "nccl":
+    if backend is None:
+        backend = "gloo" if torch.device(device).type == "cpu" else "nccl"
+    if torch.device(device).type == "cuda":
         local = int(os.environ.get("LOCAL_RANK", process_id))
         torch.cuda.set_device(local % torch.cuda.device_count())
     dist.init_process_group(backend, init_method=f"tcp://{coordinator}",

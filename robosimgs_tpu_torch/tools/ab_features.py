@@ -29,6 +29,7 @@ import torch
 
 from robosimgs_tpu_torch.core.types import Gaussians
 from robosimgs_tpu_torch.render.config import RenderConfig
+from robosimgs_tpu_torch.tools import workloads
 from robosimgs_tpu_torch.tools.flagship import build_scene, holdout_split
 from robosimgs_tpu_torch.train.densify import DensifyConfig
 from robosimgs_tpu_torch.train.optim import OptimConfig
@@ -151,10 +152,7 @@ def main(argv=None) -> int:
                     + ",".join(ARMS))
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if torch.device(args.device).type == "cuda" \
-            and not torch.cuda.is_available():
-        print("ab_features: no CUDA device (--device cpu runs the plain "
-              "versions)", file=sys.stderr)
+    if workloads.open_device(args.device, "ab_features") is None:
         return 1
     arms = [a.strip() for a in args.arms.split(",") if a.strip()]
     run(args.out, res=args.res, iters=args.iters, capacity=args.capacity,

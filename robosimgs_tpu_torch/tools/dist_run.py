@@ -156,10 +156,11 @@ class _Tally:
 
 
 def dp_step(rank, world, device, mesh_shape, cfg, impl, state, cams, targets,
-            ranks=None):
-    """One make_dp_train_step(return_grads=True) step: loss, psnr,
-    n_alive, grads, the densify state, the compositing kernels' launches
-    and comm's calls and bytes."""
+            ranks=None, steps=1):
+    """`steps` make_dp_train_step(return_grads=True) steps: the last
+    one's loss, psnr, n_alive and grads, the densify state, the
+    compositing kernels' launches and comm's calls and bytes over the
+    steps, and this rank's mesh coordinate (data, tile)."""
     mesh = _mesh(mesh_shape, device, ranks)
     if mesh.get_coordinate() is None:
         return None
@@ -167,8 +168,10 @@ def dp_step(rank, world, device, mesh_shape, cfg, impl, state, cams, targets,
     state, cams = _to(state, device), stack_cameras(_to(cams, device))
     targets = torch.as_tensor(np.asarray(targets), device=device)
     with _Tally() as tally:
-        new, m = step(state, cams, targets)
-    return {**m, "step": new.step, "densify": new.densify_state, **tally.out}
+        for _ in range(steps):
+            state, m = step(state, cams, targets)
+    return {**m, "step": state.step, "densify": state.densify_state,
+            "coordinate": list(mesh.get_coordinate()), **tally.out}
 
 
 def gs_step(rank, world, device, mesh_shape, cfg, impl, gather, shards,
@@ -267,8 +270,10 @@ def cli_render_rollout(rank, world, device, argv):
     cli.main(list(argv))
 
 
-def multihost_dp(rank, world, device, coordinator, dp_kw):
-    """initialize_multihost over tcp://coordinator, then dp_step(**dp_kw)."""
-    initialize_multihost(coordinator, world, rank, device=device)
+def multihost_dp(rank, world, device, coordinator, dp_kw, backend=None):
+    """initialize_multihost over tcp://coordinator (its backend, unless
+    given), then dp_step(**dp_kw)."""
+    initialize_multihost(coordinator, world, rank, device=device,
+                         backend=backend)
     return dp_step(rank, world, device, **dp_kw)
 

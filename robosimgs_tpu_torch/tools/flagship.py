@@ -45,6 +45,7 @@ from robosimgs_tpu_torch.render.config import RenderConfig
 from robosimgs_tpu_torch.render.mesh_raster import (MeshRasterConfig,
                                                     rasterize_mesh)
 from robosimgs_tpu_torch.render.rasterize import rasterize
+from robosimgs_tpu_torch.tools import workloads
 from robosimgs_tpu_torch.train.data import Frame
 from robosimgs_tpu_torch.train.densify import DensifyConfig
 from robosimgs_tpu_torch.train.optim import OptimConfig
@@ -260,10 +261,7 @@ def main(argv=None) -> int:
     ap.add_argument("--densify-interval", type=int, default=120)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if torch.device(args.device).type == "cuda" \
-            and not torch.cuda.is_available():
-        print("flagship: no CUDA device (--device cpu runs the plain "
-              "versions)", file=sys.stderr)
+    if workloads.open_device(args.device, "flagship") is None:
         return 1
     run(args.out_dir, res=args.res, iters=args.iters, capacity=args.capacity,
         n_init=args.init, n_views=args.views, n_hold=args.holdout,

@@ -159,10 +159,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        print("k_equiv: no CUDA device (--device cpu runs the plain "
-              "versions)", file=sys.stderr)
+    dev = workloads.open_device(args.device, "k_equiv")
+    if dev is None:
         return 1
     g, _, _ = workloads.bench_scene(dev, n=args.n)
     cam = Camera.look_at([4.0, 0.5, 1.2], [0, 0, 0], [0, 0, 1], 60.0,

@@ -49,6 +49,7 @@ from robosimgs_tpu_torch.policy.trainer import (PolicyTrainConfig,
 from robosimgs_tpu_torch.render.config import RenderConfig
 from robosimgs_tpu_torch.scenegen.rollout import (ArticulatedObject,
                                                   render_rollout)
+from robosimgs_tpu_torch.tools import workloads
 from robosimgs_tpu_torch.tools.flagship import box
 from robosimgs_tpu_torch.utils.meshio import save_mesh
 
@@ -303,10 +304,7 @@ def main(argv=None) -> int:
     ap.add_argument("--ddim-steps", type=int, default=50)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    if torch.device(args.device).type == "cuda" \
-            and not torch.cuda.is_available():
-        print("policy_multidof: no CUDA device (--device cpu runs the plain "
-              "versions)", file=sys.stderr)
+    if workloads.open_device(args.device, "policy_multidof") is None:
         return 1
     run(args.out_dir, n_eps=args.episodes, ep_len=args.ep_len,
         steps=args.steps, n_eval=args.eval_episodes,

@@ -375,10 +375,8 @@ def main(argv=None) -> int:
     ap.add_argument("--reps", type=int, default=30)
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        print("profile_stages: no CUDA device (--device cpu runs the plain "
-              "versions)", file=sys.stderr)
+    dev = workloads.open_device(args.device, "profile_stages")
+    if dev is None:
         return 1
     if args.config == "feasibility":
         g, cam, cfg = workloads.feasibility_scene(

@@ -74,9 +74,12 @@ WARMUP = 2
 MIN_DB = 60.0
 
 
-def measure_draw(g, cam, split: int = STAGED_SPLIT) -> dict:
-    """The draw's covers and demand at the staged config's 16-px tiles
-    (step 1 of the module docstring)."""
+def draw_covers(g, cam) -> dict:
+    """The draw at the staged config's 16-px tiles: "proj" (its
+    projection), "bbox" (each Gaussian's inclusive tile bbox tx0, ty0,
+    tx1, ty1 from its radius, taken as 0 where not valid), "bbox_cover"
+    (N,) and "survivor_cover" (N,) after the exact cull
+    (`per_gaussian_cover` over the largest bbox)."""
     cfg = staged_config()
     W, H = cam.width, cam.height
     with torch.no_grad():
@@ -84,15 +87,28 @@ def measure_draw(g, cam, split: int = STAGED_SPLIT) -> dict:
         tiles_x, tiles_y = num_tiles(W, H, cfg.tile_size)
         radii = torch.where(proj.valid, proj.radii,
                             torch.zeros_like(proj.radii))
-        tx0, ty0, tx1, ty1 = tile_bbox(proj.means2d, radii, tiles_x, tiles_y,
-                                       cfg.tile_size)
+        bbox = tile_bbox(proj.means2d, radii, tiles_x, tiles_y, cfg.tile_size)
+        tx0, ty0, tx1, ty1 = bbox
         cover = ((tx1 - tx0 + 1).clamp_min(0)
                  * (ty1 - ty0 + 1).clamp_min(0))
-        max_bbox = max(1, int(cover.max()))
-        surv = per_gaussian_cover(proj, W, H, cfg, max_bbox)
-        max_surv = max(1, int(surv.max()))
-        *_, st = bin_and_gather_packed(proj, W, H, staged_config(
-            K_ROUND, m=max_surv, bbox=max_bbox))
+        surv = per_gaussian_cover(proj, W, H, cfg, max(1, int(cover.max())))
+    return {"proj": proj, "bbox": bbox, "bbox_cover": cover,
+            "survivor_cover": surv}
+
+
+def measure_draw(g, cam, split: int = STAGED_SPLIT,
+                 covers: dict | None = None) -> dict:
+    """The draw's covers and demand at the staged config's 16-px tiles
+    (step 1 of the module docstring); covers: `draw_covers(g, cam)`, if
+    at hand."""
+    c = covers or draw_covers(g, cam)
+    max_bbox = max(1, int(c["bbox_cover"].max()))
+    surv = c["survivor_cover"]
+    max_surv = max(1, int(surv.max()))
+    with torch.no_grad():
+        *_, st = bin_and_gather_packed(c["proj"], cam.width, cam.height,
+                                       staged_config(K_ROUND, m=max_surv,
+                                                     bbox=max_bbox))
     if int(st.truncated_gaussians) != 0:
         raise AssertionError("the draw's lossless binning truncates")
     return {"max_bbox_cover": max_bbox, "max_survivor_cover": max_surv,
@@ -304,10 +320,8 @@ def main(argv=None) -> int:
                     help="the two-tier capacity gated and timed")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
-    dev = torch.device(args.device)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        print("staged_lossless: no CUDA device (--device cpu runs the plain "
-              "versions)", file=sys.stderr)
+    dev = workloads.open_device(args.device, "staged_lossless")
+    if dev is None:
         return 1
     g, cam = workloads.staged_scene(dev, n=args.n, res=args.res)
     res = staged_lossless(g, cam, k_cands=args.k_cands,

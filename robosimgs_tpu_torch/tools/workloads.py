@@ -41,6 +41,7 @@ import dataclasses
 import json
 import math
 import os
+import sys
 import time
 
 import numpy as np
@@ -290,6 +291,17 @@ def write_rollout_inputs(directory: str, model, steps: int = ROLLOUT_STEPS):
     with open(cams, "w") as fh:
         json.dump(ROLLOUT_CAMERAS, fh)
     return traj, cams
+
+
+def open_device(name: str, tool: str):
+    """torch.device(name) for a tool's --device, or None (after a line on
+    stderr) when it is a CUDA device and none is present."""
+    dev = torch.device(name)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        print(f"{tool}: no CUDA device (--device cpu runs the plain "
+              "versions)", file=sys.stderr)
+        return None
+    return dev
 
 
 def timer(device):
