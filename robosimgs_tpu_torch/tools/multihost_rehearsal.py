@@ -2,8 +2,7 @@
 step on a (data 2, tile 4) mesh, and every rank's loss must equal one
 process's.
 
-    python -m robosimgs_tpu_torch.tools.multihost_rehearsal
-        [--world 8] [--device cuda]
+    python -m robosimgs_tpu_torch.tools.multihost_rehearsal [--device cuda]
 
 A port of the JAX package's scripts/multihost_rehearsal.py. Its 2
 processes x 4 virtual devices are 8 ranks (tools/dist_run.py::run_ranks,
@@ -38,9 +37,6 @@ import torch
 import torch.distributed as dist
 
 from robosimgs_tpu_torch.core.types import Gaussians
-from robosimgs_tpu_torch.parallel.distributed import (make_dp_train_step,
-                                                      stack_cameras)
-from robosimgs_tpu_torch.parallel.mesh import make_mesh
 from robosimgs_tpu_torch.render.config import RenderConfig
 from robosimgs_tpu_torch.render.rasterize import rasterize
 from robosimgs_tpu_torch.tools import dist_run, workloads
@@ -93,14 +89,9 @@ def single_process_loss(cfg, cams, targets, state, device,
             "gloo", init_method=f"tcp://127.0.0.1:{dist_run.free_port()}",
             world_size=1, rank=0)
     try:
-        step = make_dp_train_step(cfg, make_mesh(
-            1, 1, device_type=torch.device(device).type), impl="reference")
-        state = dist_run._to(state, device)
-        cam_b = stack_cameras(dist_run._to(cams, device))
-        tgt = torch.as_tensor(np.asarray(targets), device=device)
-        for _ in range(steps):
-            state, m = step(state, cam_b, tgt)
-        return float(m["loss"])
+        return float(dist_run.dp_step(0, 1, device, (1, 1), cfg,
+                                      "reference", state, cams, targets,
+                                      steps=steps)["loss"])
     finally:
         if own:
             dist.destroy_process_group()
@@ -114,15 +105,16 @@ def default_backend(device, world: int) -> str:
 
 
 def rehearse(cfg, cams, targets, state, device="cuda",
-             world: int = N_PROC * LOCAL_DEVS,
-             mesh_shape=(N_PROC, LOCAL_DEVS), steps: int = STEPS) -> dict:
-    """`steps` DP steps on `world` ranks joined by initialize_multihost,
-    mesh mesh_shape, and at world 1 here: {"losses": each rank's last
-    loss, "coordinates", "launches", "single_process_loss", "match",
-    ...}. Inputs on the CPU (each rank moves them to `device`)."""
+             steps: int = STEPS) -> dict:
+    """`steps` DP steps on N_PROC x LOCAL_DEVS ranks joined by
+    initialize_multihost, mesh (N_PROC, LOCAL_DEVS), and at world 1
+    here: {"losses": each rank's last loss, "coordinates", "launches",
+    "single_process_loss", "match", ...}. Inputs on the CPU (each rank
+    moves them to `device`)."""
+    world, mesh_shape = N_PROC * LOCAL_DEVS, (N_PROC, LOCAL_DEVS)
     backend = default_backend(device, world)
     cpu = torch.device("cpu")
-    kw = dict(mesh_shape=tuple(mesh_shape), cfg=cfg, impl="reference",
+    kw = dict(mesh_shape=mesh_shape, cfg=cfg, impl="reference",
               state=dist_run._to(state, cpu),
               cams=[c.to(cpu) for c in cams], targets=np.asarray(targets),
               steps=steps)
@@ -132,8 +124,8 @@ def rehearse(cfg, cams, targets, state, device="cuda",
     ref = single_process_loss(cfg, cams, targets, state, device, steps)
     losses = [float(r["loss"]) for r in ranks]
     coords = [list(r["coordinate"]) for r in ranks]
-    n_tile = mesh_shape[1]
-    rows_ok = coords == [[r // n_tile, r % n_tile] for r in range(world)]
+    rows_ok = coords == [[r // LOCAL_DEVS, r % LOCAL_DEVS]
+                         for r in range(world)]
     match = (max(losses) - min(losses) <= 1e-12 and all(
         abs(x - ref) < RTOL * max(1.0, abs(ref)) for x in losses))
     return {"multihost_loss": losses[0], "single_process_loss": ref,
@@ -147,18 +139,15 @@ def rehearse(cfg, cams, targets, state, device="cuda",
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    ap.add_argument("--world", type=int, default=N_PROC * LOCAL_DEVS,
-                    help="ranks; the mesh is (2, world // 2)")
     ap.add_argument("--device", default="cuda")
     args = ap.parse_args(argv)
     dev = workloads.open_device(args.device, "multihost_rehearsal")
     if dev is None:
         return 1
     cfg, cams, targets, state = build_problem("cpu")
-    res = rehearse(cfg, cams, targets, state, args.device, args.world,
-                   (N_PROC, args.world // N_PROC))
+    res = rehearse(cfg, cams, targets, state, args.device)
     for r, loss in enumerate(res["losses"]):
-        print(f"MULTIHOST_LOSS pid={r} procs={args.world} "
+        print(f"MULTIHOST_LOSS pid={r} procs={res['processes']} "
               f"mesh={tuple(res['mesh'])} coordinate="
               f"{tuple(res['coordinates'][r])} loss={loss:.8f}", flush=True)
     print(f"single-process reference loss={res['single_process_loss']:.8f}")

@@ -4,7 +4,7 @@ Gaussians, decomposed, drawn three ways, and gated by capacity.
     python -m robosimgs_tpu_torch.tools.profile_rollout [--iters 20]
         [--variants 'name,k=..,m=..,bbox=..,split=..,frac=..;...']
         [--gate 1] [--k-lossless 8192] [--n 200000] [--width 640]
-        [--height 480] [--device cuda] [--out result.json]
+        [--height 480] [--device cuda]
 
 A port of the JAX package's scripts/profile_rollout.py on the rollout
 workload's Gaussians and cameras (tools/workloads.py::rollout_scene:
@@ -24,8 +24,10 @@ RSGS_ROLLOUT_GATE -> --gate, RSGS_ROLLOUT_K_LOSSLESS -> --k-lossless);
      (`one_cam_ms`), four composite_tiled calls (`seq4_ms`), and
      composite_tiled_batch over stack_projected, one forward launch for
      the 4 x T tiles (`batched4_ms`); each by the device's timer and by
-     the host's wall clock, with the forward launches of one frame and
-     the device's idle share over one profiled frame.
+     the host's wall clock, twice, in the order events, wall, wall,
+     events (`{strategy}_runs_ms`; `_ms` and `_wall_ms` are the means of
+     each timer's two readings), with the forward launches of one frame
+     and the device's idle share over one profiled frame.
   3. The K gate on camera 0 (--gate 1): each candidate K (2,048, 1,024,
      512) at M 64 over an 84-tile bbox against the lossless K (8,192,
      tile_chunk 512) at the same M and bbox (`gate_K{k}_dB`), and the
@@ -232,8 +234,13 @@ def profile_rollout(g, cams, variants: dict, iters: int = ITERS,
         for name, cfg in variants.items():
             row = {}
             for strat, fn in frame_fns(g, cams, cfg).items():
-                row[f"{strat}_ms"] = timer(fn, reps=iters)
-                row[f"{strat}_wall_ms"] = wall_ms(fn, iters, dev)
+                # each timer before and after the other: events, wall,
+                # wall, events; the mean of each timer's two readings
+                runs = [timer(fn, reps=iters), wall_ms(fn, iters, dev)]
+                runs += [wall_ms(fn, iters, dev), timer(fn, reps=iters)]
+                row[f"{strat}_ms"] = (runs[0] + runs[3]) / 2
+                row[f"{strat}_wall_ms"] = (runs[1] + runs[2]) / 2
+                row[f"{strat}_runs_ms"] = runs
                 row[f"{strat}_launches"] = launches_of(fn)
                 row[f"{strat}_idle"] = idle_share(fn, dev)
             res[name] = row
@@ -283,7 +290,6 @@ def main(argv=None) -> int:
     ap.add_argument("--variants", default="")
     ap.add_argument("--gate", type=int, default=1, choices=(0, 1))
     ap.add_argument("--k-lossless", type=int, default=K_LOSSLESS)
-    ap.add_argument("--out", default=None, help="also write the JSON here")
     add_scene_args(ap)
     args = ap.parse_args(argv)
     dev = workloads.open_device(args.device, "profile_rollout")
@@ -295,11 +301,7 @@ def main(argv=None) -> int:
                           bool(args.gate), args.k_lossless,
                           log=lambda s: print(s, flush=True))
     res.pop("gate", None)
-    line = json.dumps(res)
-    if args.out:
-        with open(args.out, "w") as fh:
-            fh.write(line + "\n")
-    print("RESULT " + line, flush=True)
+    print("RESULT " + json.dumps(res), flush=True)
     return 0
 
 

@@ -230,7 +230,7 @@ def run_world(rank, world, device, configs, law_ns, blocks_n=None,
 
 
 def ring_at_scale(device: str = "cuda", ns=NS, world: int = N_DEV,
-                  law_worlds=LAW_WORLDS, law_ns=LAW_NS, gathers=GATHERS,
+                  law_worlds=LAW_WORLDS, law_ns=LAW_NS,
                   gaussians=None, log=None) -> dict:
     """(a) at `world` for every n of ns and gather, and (b) at every world
     of law_worlds: one spawn per world. Returns the JSON's dict, with
@@ -243,7 +243,7 @@ def ring_at_scale(device: str = "cuda", ns=NS, world: int = N_DEV,
         _build.build_all(["composite_fwd", "composite_bwd"])
     steps, law, ranks, blocks = [], [], {}, None
     for w in sorted(set(law_worlds) | {world}):
-        configs = ([(n, gather) for n in ns for gather in gathers]
+        configs = ([(n, gather) for n in ns for gather in GATHERS]
                    if w == world else [])
         t0 = time.perf_counter()
         got = dist_run.run_ranks(

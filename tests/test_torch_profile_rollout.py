@@ -145,6 +145,9 @@ def test_main_prints_the_scripts_keys(capsys):
     for name in ("r4_single_K1024", "tt12_K512"):
         assert FRAME_KEYS <= set(res[name])
         assert all(np.isfinite(res[name][k]) for k in FRAME_KEYS)
+        runs = res[name]["batched4_runs_ms"]
+        assert len(runs) == 4
+        assert res[name]["batched4_ms"] == (runs[0] + runs[3]) / 2
     assert res["device"] == "cpu" and res["timer"] == "host clock"
 
 
