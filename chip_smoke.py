@@ -630,6 +630,7 @@ def main() -> int:
                                                      bench_scene, orbit_views,
                                                      saturated_scene, time_ms)
     from robosimgs_tpu_torch.utils.imresize import read_png_rgb
+    from robosimgs_tpu_torch.utils.profiling import device_rows
 
     t_start = time.perf_counter()
     dev = torch.device("cuda")
@@ -1051,9 +1052,7 @@ def main() -> int:
     log("  stages (ms): " + ", ".join(f"{k} {v:.4f}"
                                       for k, v in stage_ms.items()))
     # device-side events only: a CPU op also reports its kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+    events = device_rows(prof)
     dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / n_prof
     log(f"  host wall {wall_ms:.4f} ms/render, device busy {dev_ms:.4f} "
         f"ms/render (profiler), idle share {1 - dev_ms / wall_ms:.3f}")
@@ -1084,9 +1083,7 @@ def main() -> int:
         for _ in range(n_prof):
             train_step()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+    events = device_rows(prof)
     step_dev_ms = sum(e.self_device_time_total for e in events) / 1e3 / n_prof
     n_kern = sum(e.count for e in events) // n_prof
     log(f"  train step {res}x{res}: {step_ms:.4f} ms (CUDA events), host "
@@ -2202,6 +2199,7 @@ def rollout(dev, smi: str) -> dict:
                                                      write_rollout_object)
     from robosimgs_tpu_torch.train.io_ply import save_ply
     from robosimgs_tpu_torch.utils.imresize import read_png_rgb
+    from robosimgs_tpu_torch.utils.profiling import device_rows
 
     t7 = time.perf_counter()
     g, cams, cfg = rollout_scene(dev)
@@ -2417,9 +2415,7 @@ def rollout(dev, smi: str) -> dict:
                                                        dlim, **kw), reps=5)
         bound_ms, bound_by, detail, _ = fwd_bound(geom, counts, got[2], dlim,
                                                   tx, cfg)
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+    events = device_rows(prof)
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3 / n_prof
     n_kern = sum(e.count for e in events) // n_prof
     kernel_ms = stages["composite_fwd"]
@@ -2447,14 +2443,14 @@ def device_busy(run, n: int):
     from the profiler's device-side events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
+
+    from robosimgs_tpu_torch.utils.profiling import device_rows
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         for _ in range(n):
             run()
         torch.cuda.synchronize()
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+    events = device_rows(prof)
     return (sum(e.self_device_time_total for e in events) / 1e3 / n,
             sum(e.count for e in events) / n)
 
@@ -3280,10 +3276,8 @@ def device_ops(prof, n: int, tag: str, top: int = 8) -> dict:
     sets; self time a step) and returns {"total_ms", "transpose_ms",
     "top"}: transpose_ms is the row gather's transpose, the device time
     of what binning's _GatherRows backward ran."""
-    import torch
-    events = [e for e in prof.key_averages()
-              if e.device_type == torch.autograd.DeviceType.CUDA
-              and e.self_device_time_total > 0]
+    from robosimgs_tpu_torch.utils.profiling import device_rows
+    events = device_rows(prof)
     total = sum(e.self_device_time_total for e in events) / 1e3 / n
     transpose = sum(
         e.device_time_total for e in prof.events()
@@ -3378,6 +3372,7 @@ def leftovers(dev, smi: str) -> dict:
                                                 synthetic_scene)
     from robosimgs_tpu_torch.train.trainer import TrainConfig, Trainer
     from robosimgs_tpu_torch.utils.imresize import read_png_rgb
+    from robosimgs_tpu_torch.utils.profiling import device_rows
 
     t11 = time.perf_counter()
     res_out = {}
@@ -3550,9 +3545,7 @@ def leftovers(dev, smi: str) -> dict:
             tr.run(iterations=n_prof, progress=False)
             torch.cuda.synchronize()
             prof_wall = (time.perf_counter() - t0) * 1e3 / n_prof
-        events = [e for e in prof.key_averages()
-                  if e.device_type == torch.autograd.DeviceType.CUDA
-                  and e.self_device_time_total > 0]
+        events = device_rows(prof)
         n_kern = sum(e.count for e in events) / n_prof
         per_kernel = kernel_counts(prof, n_prof)
         union, summed, _ = trace_busy(prof)

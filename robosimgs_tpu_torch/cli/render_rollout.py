@@ -26,6 +26,7 @@ renders, the other ranks wait, and rank 0 writes the frames:
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -63,6 +64,11 @@ def build_parser():
                         "gate; 0 disables and keeps the lossless K)")
     p.add_argument("--device", default="cuda",
                    help="torch device to render on (default: cuda)")
+    p.add_argument("--trace", metavar="DIR", default=None,
+                   help="profile the render: write its Chrome trace and "
+                        "span summary (utils/profiling.py) to DIR and print "
+                        "the counters, truncated splats and triangles "
+                        "among them")
     return p
 
 
@@ -118,6 +124,7 @@ def _run(args, rank: int, world: int):
                                                       render_rollout,
                                                       rollout_meshes)
     from robosimgs_tpu_torch.train.io_ply import load_ply
+    from robosimgs_tpu_torch.utils.profiling import trace
 
     background = load_ply(args.scene, device=args.device)
     objects = [ArticulatedObject.from_urdf(u) for u in args.urdf]
@@ -206,9 +213,15 @@ def _run(args, rank: int, world: int):
               f"over steps, cameras and links (--autotune sizes the tile "
               f"capacity)", file=sys.stderr)
 
-    frames = render_rollout(background, objects, traj, cams, impl=args.impl,
-                            base_poses=base_poses, as_uint8=True,
-                            mesh_cfg=mesh_cfg, camera_mesh=camera_mesh, **kw)
+    with (trace(args.trace) if args.trace
+          else contextlib.nullcontext()) as prof:
+        frames = render_rollout(background, objects, traj, cams,
+                                impl=args.impl, base_poses=base_poses,
+                                as_uint8=True, mesh_cfg=mesh_cfg,
+                                camera_mesh=camera_mesh, **kw)
+    if args.trace:
+        print(f"trace {prof.trace_path}, spans {prof.summary_path}")
+        print(f"counters {json.dumps(prof.summary['counters'])}")
     if rank:
         return
     os.makedirs(args.output, exist_ok=True)

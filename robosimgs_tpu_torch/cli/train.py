@@ -61,6 +61,11 @@ def build_parser():
                         "balance drift)")
     p.add_argument("--device", default="cuda",
                    help="torch device to train on (default: cuda)")
+    p.add_argument("--trace", metavar="DIR", default=None,
+                   help="profile one log interval of the run (the whole "
+                        "run when it logs twice or less): write its Chrome "
+                        "trace and span summary (utils/profiling.py) to DIR "
+                        "and print binning's counters")
     return p
 
 
@@ -157,7 +162,12 @@ def main(argv=None):
     )
 
     trainer = Trainer(cfg, init, train_frames, eval_frames)
-    trainer.run()
+    if args.trace:
+        prof = traced_run(trainer, args.trace)
+        print(f"trace {prof.trace_path}, spans {prof.summary_path}")
+        print(f"counters {json.dumps(prof.summary['counters'])}")
+    else:
+        trainer.run()
     metrics = trainer.eval_metrics()
     print(f"final eval PSNR: {metrics['psnr']:.2f} dB  "
           f"SSIM: {metrics['ssim']:.4f}")
@@ -170,6 +180,28 @@ def main(argv=None):
                    "n_alive": int(trainer.state.gaussians.num_alive)}, fh,
                   indent=2)
     print(f"saved {ply_path}")
+
+
+def traced_run(trainer, log_dir: str):
+    """trainer.run() under utils.profiling.trace(log_dir); returns the
+    profiler. A run that logs three times or more records the steps
+    after its second logged step up to its third (the first interval
+    holds the first steps' allocations), so that the trace and the span
+    records keep one interval's size however long the run; a shorter run
+    is recorded whole."""
+    import torch
+
+    from robosimgs_tpu_torch.utils.profiling import trace
+    cfg = trainer.cfg
+    window = None
+    if cfg.iterations > 2 * cfg.log_every:
+        # a profiler step at every logged step: waits to the first,
+        # warms up to the second, records to the third
+        window = torch.profiler.schedule(wait=1, warmup=1, active=1,
+                                         repeat=1)
+    with trace(log_dir, schedule=window) as prof:
+        trainer.run(on_log=(lambda m: prof.step()) if window else None)
+    return prof
 
 
 if __name__ == "__main__":

@@ -34,6 +34,7 @@ import torch
 from robosimgs_tpu_torch.render.config import RenderConfig
 from robosimgs_tpu_torch.render.project import Projected
 from robosimgs_tpu_torch.render.tiles import num_tiles, tile_bbox
+from robosimgs_tpu_torch.utils.profiling import count, recording, span
 
 
 @dataclasses.dataclass
@@ -212,6 +213,7 @@ class _GatherRows(torch.autograd.Function):
         return packed[sel]
 
     @staticmethod
+    @span("bin.gather_bwd")
     def backward(ctx, grad):
         order, pos = ctx.saved_tensors
         rows = torch.cat([grad.reshape(-1, grad.shape[-1]),
@@ -244,117 +246,126 @@ def bin_and_gather_packed(proj: Projected, width: int, height: int,
     packed = pack16(proj)
     zero = torch.zeros((), dtype=proj.means2d.dtype, device=dev)
     valid = proj.valid
-    bbox_in = torch.stack([
-        proj.means2d[:, 0], proj.means2d[:, 1],
-        torch.where(valid, proj.radii.to(zero.dtype), zero),
-        proj.conics[:, 0], proj.conics[:, 1], proj.conics[:, 2],
-        torch.where(valid, proj.opacities, zero),
-    ], dim=1).detach()  # (N, 7); cols 3..6 feed the exact-intersection cull
-
-    # global front-to-back permutation (stable, like jnp.argsort)
-    inf = torch.full_like(proj.depths, math.inf)
-    order = torch.argsort(torch.where(valid, proj.depths.detach(), inf),
-                          stable=True)
-    bbox_s = bbox_in[order]
+    with span("bin.depth_order"):
+        bbox_in = torch.stack([
+            proj.means2d[:, 0], proj.means2d[:, 1],
+            torch.where(valid, proj.radii.to(zero.dtype), zero),
+            proj.conics[:, 0], proj.conics[:, 1], proj.conics[:, 2],
+            torch.where(valid, proj.opacities, zero),
+        ], dim=1).detach()  # (N, 7); cols 3..6 feed the exact cull
+        # global front-to-back permutation (stable, like jnp.argsort)
+        inf = torch.full_like(proj.depths, math.inf)
+        order = torch.argsort(torch.where(valid, proj.depths.detach(), inf),
+                              stable=True)
+        bbox_s = bbox_in[order]
     m2d_s = bbox_s[:, 0:2]
     radii_s = bbox_s[:, 2]
-    valid_s = radii_s > 0.0
 
-    tx0, ty0, tx1, ty1 = tile_bbox(m2d_s, radii_s, tiles_x, tiles_y,
-                                   cfg.tile_size)
-    # enumerate Mb bbox tiles; after the cull, survivors are compacted
-    # down to M slots by a row-local sort (sentinel T sorts last)
-    Mb = max(cfg.bbox_tiles_per_gaussian, M)
-    tid, row, col, in_bbox, cover = _bbox_slots(tx0, ty0, tx1, ty1, Mb,
-                                                tiles_x)
-    valid_e = in_bbox & valid_s[:, None]
+    with span("bin.cull"):
+        valid_s = radii_s > 0.0
+        tx0, ty0, tx1, ty1 = tile_bbox(m2d_s, radii_s, tiles_x, tiles_y,
+                                       cfg.tile_size)
+        # enumerate Mb bbox tiles; after the cull, survivors are
+        # compacted down to M slots by a row-local sort (sentinel T
+        # sorts last)
+        Mb = max(cfg.bbox_tiles_per_gaussian, M)
+        tid, row, col, in_bbox, cover = _bbox_slots(tx0, ty0, tx1, ty1, Mb,
+                                                    tiles_x)
+        valid_e = in_bbox & valid_s[:, None]
+        if cfg.exact_tile_cull:
+            valid_e = valid_e & _cull_keep(
+                m2d_s, bbox_s[:, 3:7], tx0, ty0, col, row,
+                cfg.tile_size, cfg.alpha_min)
+        tid = torch.where(valid_e, tid, torch.full_like(tid, T))
+        surv = valid_e.sum(dim=1)                          # per-gaussian cover
 
-    if cfg.exact_tile_cull:
-        valid_e = valid_e & _cull_keep(
-            m2d_s, bbox_s[:, 3:7], tx0, ty0, col, row,
-            cfg.tile_size, cfg.alpha_min)
-
-    tid = torch.where(valid_e, tid, torch.full_like(tid, T))
-    surv = valid_e.sum(dim=1)                              # per-gaussian cover
     Ms = cfg.two_tier_split
     two_tier = 0 < Ms < M
-    if Mb > M:
-        tid = torch.sort(tid, dim=1).values[:, :M]
-    elif two_tier:
-        # two-tier needs sentinels at the row tail (the cull leaves holes)
-        tid = torch.sort(tid, dim=1).values
+    with span("bin.compact", device_time=True):
+        if Mb > M:
+            tid = torch.sort(tid, dim=1).values[:, :M]
+        elif two_tier:
+            # two-tier needs sentinels at the row tail (the cull leaves
+            # holes)
+            tid = torch.sort(tid, dim=1).values
 
     # entries are depth-ordered (rank = row index), so sorting the
     # int64 key (tid << bits | rank) groups by tile, front to back
     bits = max(1, (n - 1).bit_length())
-    rank = torch.arange(n, device=dev)
-    spill_missed = torch.zeros((n,), dtype=torch.bool, device=dev)
-    spill_dropped_pairs = 0
-    if two_tier:
-        # tier 1: everyone's first Ms (row-sorted) slots; tier 2: the S
-        # widest gaussians contribute slots Ms..M (rows that don't
-        # actually spill contribute inert sentinel keys)
-        S = min(n, max(128, -(-int(cfg.two_tier_spill_frac * n) // 128)
-                       * 128))
-        key1 = (tid[:, :Ms] << bits) | rank[:, None]
-        spill = torch.sort(surv, descending=True, stable=True)
-        spill_cover, spill_idx = spill.values[:S], spill.indices[:S]
-        key2 = (tid[:, Ms:][spill_idx] << bits) | spill_idx[:, None]
-        packed_key = torch.cat([key1.reshape(-1), key2.reshape(-1)])
-        need = (torch.clamp_max(surv, M) - Ms).clamp_min(0).sum()
-        got = (torch.clamp_max(spill_cover, M) - Ms).clamp_min(0).sum()
-        spill_dropped_pairs = need - got
-        # index_fill_ takes True as a kernel argument (an indexed
-        # assignment copies it from the host, which a CUDA graph refuses)
-        in_spill = torch.zeros((n,), dtype=torch.bool,
-                               device=dev).index_fill_(0, spill_idx, True)
-        spill_missed = (surv > Ms) & ~in_spill
-    else:
-        packed_key = ((tid << bits) | rank[:, None]).reshape(-1)
-    L = packed_key.shape[0]
-    s_key, s_perm = torch.sort(packed_key)
-    # per-tile bounds: the first key at or past (tile << bits)
-    bounds = torch.searchsorted(
-        s_key, torch.arange(T + 1, device=dev) << bits)
-    # each tile's K candidates are contiguous in the sorted keys: one
-    # (T, K) index gather of the padded key array
-    s_key_pad = torch.cat([s_key, torch.full((K,), (T + 1) << bits,
-                                             device=dev)])
-    k_ar = torch.arange(K, device=dev)
-    win = s_key_pad[torch.clamp_max(bounds[:-1], L)[:, None] + k_ar[None, :]]
-    sel_rank = win & ((1 << bits) - 1)
-
-    full_counts = bounds[1:] - bounds[:-1]
-    counts = torch.clamp_max(full_counts, K)
-
-    kmask = k_ar[None, :] < counts[:, None]
-    sel = order[torch.where(kmask, sel_rank, torch.zeros_like(sel_rank))]
-
-    if packed.requires_grad:
-        # each entry's (tile, slot) position in the (T, K) blocks, T*K
-        # where it is a sentinel or past its tile's capacity
-        j = torch.arange(L, device=dev)
-        s_tile = s_key >> bits
-        slot = j - bounds[torch.clamp_max(s_tile, T)]
-        flat = torch.where((s_tile < T) & (slot < K), s_tile * K + slot,
-                           T * K)
-        flat = torch.empty_like(flat).scatter_(0, s_perm, flat)
+    with span("bin.key_sort", device_time=True):
+        rank = torch.arange(n, device=dev)
+        spill_missed = torch.zeros((n,), dtype=torch.bool, device=dev)
+        spill_dropped_pairs = 0
         if two_tier:
-            pos = torch.full((n, M), T * K, dtype=flat.dtype, device=dev)
-            pos[:, :Ms] = flat[:n * Ms].view(n, Ms)
-            pos[spill_idx, Ms:] = flat[n * Ms:].view(-1, M - Ms)
+            # tier 1: everyone's first Ms (row-sorted) slots; tier 2: the
+            # S widest gaussians contribute slots Ms..M (rows that don't
+            # actually spill contribute inert sentinel keys)
+            S = min(n, max(128, -(-int(cfg.two_tier_spill_frac * n) // 128)
+                           * 128))
+            key1 = (tid[:, :Ms] << bits) | rank[:, None]
+            spill = torch.sort(surv, descending=True, stable=True)
+            spill_cover, spill_idx = spill.values[:S], spill.indices[:S]
+            key2 = (tid[:, Ms:][spill_idx] << bits) | spill_idx[:, None]
+            packed_key = torch.cat([key1.reshape(-1), key2.reshape(-1)])
+            need = (torch.clamp_max(surv, M) - Ms).clamp_min(0).sum()
+            got = (torch.clamp_max(spill_cover, M) - Ms).clamp_min(0).sum()
+            spill_dropped_pairs = need - got
+            # index_fill_ takes True as a kernel argument (an indexed
+            # assignment copies it from the host, which a CUDA graph
+            # refuses)
+            in_spill = torch.zeros((n,), dtype=torch.bool,
+                                   device=dev).index_fill_(0, spill_idx, True)
+            spill_missed = (surv > Ms) & ~in_spill
         else:
-            pos = flat.view(n, -1)
-        gathered = _GatherRows.apply(packed, sel, order, pos)
-    else:
-        gathered = packed[sel]                           # (T, K, 16)
-    # padding entries must be inert: zero their opacity column
-    op = torch.where(kmask, gathered[:, :, 5], torch.zeros_like(gathered[:, :, 5]))
-    gathered = torch.cat([gathered[:, :, :5], op[:, :, None],
-                          gathered[:, :, 6:]], dim=2)
-    gathered = gathered.transpose(1, 2)                  # (T, 16, K)
-    geom = gathered[:, :8].contiguous()
-    feat = gathered[:, 8:].contiguous()
+            packed_key = ((tid << bits) | rank[:, None]).reshape(-1)
+        L = packed_key.shape[0]
+        s_key, s_perm = torch.sort(packed_key)
+        # per-tile bounds: the first key at or past (tile << bits)
+        bounds = torch.searchsorted(
+            s_key, torch.arange(T + 1, device=dev) << bits)
+
+    with span("bin.gather"):
+        # each tile's K candidates are contiguous in the sorted keys: one
+        # (T, K) index gather of the padded key array
+        s_key_pad = torch.cat([s_key, torch.full((K,), (T + 1) << bits,
+                                                 device=dev)])
+        k_ar = torch.arange(K, device=dev)
+        win = s_key_pad[torch.clamp_max(bounds[:-1], L)[:, None]
+                        + k_ar[None, :]]
+        sel_rank = win & ((1 << bits) - 1)
+
+        full_counts = bounds[1:] - bounds[:-1]
+        counts = torch.clamp_max(full_counts, K)
+
+        kmask = k_ar[None, :] < counts[:, None]
+        sel = order[torch.where(kmask, sel_rank, torch.zeros_like(sel_rank))]
+
+        if packed.requires_grad:
+            # each entry's (tile, slot) position in the (T, K) blocks, T*K
+            # where it is a sentinel or past its tile's capacity
+            j = torch.arange(L, device=dev)
+            s_tile = s_key >> bits
+            slot = j - bounds[torch.clamp_max(s_tile, T)]
+            flat = torch.where((s_tile < T) & (slot < K), s_tile * K + slot,
+                               T * K)
+            flat = torch.empty_like(flat).scatter_(0, s_perm, flat)
+            if two_tier:
+                pos = torch.full((n, M), T * K, dtype=flat.dtype, device=dev)
+                pos[:, :Ms] = flat[:n * Ms].view(n, Ms)
+                pos[spill_idx, Ms:] = flat[n * Ms:].view(-1, M - Ms)
+            else:
+                pos = flat.view(n, -1)
+            gathered = _GatherRows.apply(packed, sel, order, pos)
+        else:
+            gathered = packed[sel]                       # (T, K, 16)
+        # padding entries must be inert: zero their opacity column
+        op = torch.where(kmask, gathered[:, :, 5],
+                         torch.zeros_like(gathered[:, :, 5]))
+        gathered = torch.cat([gathered[:, :, :5], op[:, :, None],
+                              gathered[:, :, 6:]], dim=2)
+        gathered = gathered.transpose(1, 2)              # (T, 16, K)
+        geom = gathered[:, :8].contiguous()
+        feat = gathered[:, 8:].contiguous()
 
     stats = BinStats(
         truncated_gaussians=(
@@ -363,6 +374,16 @@ def bin_and_gather_packed(proj: Projected, width: int, height: int,
         max_tile_count=full_counts.max(),
         total_pairs=torch.clamp_max(surv, M).sum() - spill_dropped_pairs,
     )
+    if recording():
+        # how much of each sort is real work: slots kept by the cull of
+        # those enumerated, keys of a tile of those sorted (the kept
+        # slots' sum is the one reduction counting launches)
+        count("bin.slots", n * Mb)
+        count("bin.slots_kept", surv.sum())
+        count("bin.keys_sorted", L)
+        count("bin.keys_real", bounds[-1])
+        count("bin.truncated", stats.truncated_gaussians)
+        count("bin.overflowed_tiles", stats.overflowed_tiles)
     counts = counts.to(torch.int32)
     if return_sel:
         return geom, feat, counts, stats, sel

@@ -68,6 +68,7 @@ from robosimgs_tpu_torch.render import _build
 from robosimgs_tpu_torch.render.config import RenderConfig
 from robosimgs_tpu_torch.render.gathered import (tile_alpha, tile_alpha_parts,
                                                  tile_pixel_coords)
+from robosimgs_tpu_torch.utils.profiling import span
 
 # splats per block: the unit of the early exit and of nblk (Pallas BK)
 BK = 128
@@ -629,6 +630,7 @@ class Composite(torch.autograd.Function):
         return out
 
     @staticmethod
+    @span("splat.composite")
     def backward(ctx, gout):
         geom, feat, counts, dlim, log_t_final, nblk, log_t_groups = \
             ctx.saved_tensors

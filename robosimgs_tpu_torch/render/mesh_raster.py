@@ -32,6 +32,7 @@ from robosimgs_tpu_torch.core.camera import Camera
 from robosimgs_tpu_torch.render.binning import bin_rects
 from robosimgs_tpu_torch.render.gathered import tile_pixel_coords, untile
 from robosimgs_tpu_torch.render.tiles import num_tiles
+from robosimgs_tpu_torch.utils.profiling import count, span
 
 # elements of one (tiles, pixels, candidates) temporary per group; about
 # a dozen such temporaries are alive at once
@@ -263,6 +264,7 @@ def _empty_tiles(T: int, P: int, dtype, device) -> torch.Tensor:
     return out
 
 
+@span("mesh.raster")
 def rasterize_mesh(
     vertices: torch.Tensor,        # (V, 3) world space
     faces: torch.Tensor,           # (F, 3) int
@@ -352,12 +354,17 @@ def rasterize_mesh(
     ty0, ty1 = edge(minv, tiles_y), edge(maxv, tiles_y)
     tx1 = torch.where(valid, tx1, tx0 - 1)                     # empty bbox
     rank = torch.arange(tri_uv.shape[0], device=dev)   # z-buffer: any order
-    sel, counts, stats = bin_rects(tx0, ty0, tx1, ty1, rank, valid, tiles_x,
-                                   tiles_y, cfg.max_tiles_per_tri,
-                                   cfg.tile_capacity)
+    with span("mesh.bin"):
+        sel, counts, stats = bin_rects(tx0, ty0, tx1, ty1, rank, valid,
+                                       tiles_x, tiles_y,
+                                       cfg.max_tiles_per_tri,
+                                       cfg.tile_capacity)
+    count("mesh.truncated", stats.truncated_gaussians)
+    count("mesh.overflowed_tiles", stats.overflowed_tiles)
 
     # the non-empty tiles, in groups bounded by _GROUP_ELEMS (one sync)
-    counts_host = counts.cpu()
+    with span("mesh.read_counts"):
+        counts_host = counts.cpu()
     busy = torch.nonzero(counts_host > 0)[:, 0]
     tiles = _empty_tiles(T, P, tri_uv.dtype, dev)
     if busy.numel():

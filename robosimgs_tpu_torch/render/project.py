@@ -19,6 +19,7 @@ from robosimgs_tpu_torch.core.math3d import (camera_covariance_components,
 from robosimgs_tpu_torch.core.sh import eval_sh
 from robosimgs_tpu_torch.core.types import Gaussians
 from robosimgs_tpu_torch.render.config import RenderConfig
+from robosimgs_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -49,6 +50,7 @@ class Projected:
     normals: Optional[torch.Tensor] = None
 
 
+@span("splat.project")
 def project(
     gaussians: Gaussians,
     camera: Camera,

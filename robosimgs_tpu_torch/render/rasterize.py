@@ -21,8 +21,10 @@ from robosimgs_tpu_torch.render.config import RenderConfig
 from robosimgs_tpu_torch.render.project import project
 from robosimgs_tpu_torch.render.reference import composite_reference
 from robosimgs_tpu_torch.render.tiled import composite_tiled
+from robosimgs_tpu_torch.utils.profiling import span
 
 
+@span("render.rasterize")
 def rasterize(
     gaussians: Gaussians,
     camera: Camera,

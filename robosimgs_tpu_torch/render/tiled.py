@@ -27,6 +27,7 @@ from robosimgs_tpu_torch.render.gathered import (composite_gathered,
 from robosimgs_tpu_torch.render.kernels import Composite
 from robosimgs_tpu_torch.render.project import Projected
 from robosimgs_tpu_torch.render.tiles import num_tiles
+from robosimgs_tpu_torch.utils.profiling import span
 
 
 def composite_tiled(
@@ -44,7 +45,9 @@ def composite_tiled(
     mesh's z-buffer) — Gaussians behind it are occluded.
     """
     tiles_x, tiles_y = num_tiles(width, height, cfg.tile_size)
-    geom, feat, counts, stats = bin_and_gather_packed(proj, width, height, cfg)
+    with span("splat.bin"):
+        geom, feat, counts, stats = bin_and_gather_packed(proj, width,
+                                                          height, cfg)
 
     dlim = None   # the kernel's occlusion test is off without a limit
     if depth_limit is not None:
@@ -109,13 +112,14 @@ def composite_from_tiles(
     tiles_x, tiles_y = num_tiles(width, height, cfg.tile_size)
 
     has_dlim = dlim is not None
-    out_tiles = Composite.apply(
-        geom, feat, counts.detach(),
-        dlim.detach()[..., None].contiguous() if has_dlim else None,
-        tiles_x, cfg, 0, has_dlim)
-
-    img = untile(out_tiles, tiles_x, tiles_y, width, height, cfg.tile_size)
-    return _image_outputs(img, background, normal_mode)
+    with span("splat.composite"):
+        out_tiles = Composite.apply(
+            geom, feat, counts.detach(),
+            dlim.detach()[..., None].contiguous() if has_dlim else None,
+            tiles_x, cfg, 0, has_dlim)
+        img = untile(out_tiles, tiles_x, tiles_y, width, height,
+                     cfg.tile_size)
+        return _image_outputs(img, background, normal_mode)
 
 
 def _image_outputs(img: torch.Tensor, background: Optional[torch.Tensor],
@@ -174,8 +178,10 @@ def composite_tiled_batch(
     """
     tiles_x, tiles_y = num_tiles(width, height, cfg.tile_size)
     n_cam = projs.means2d.shape[0]
-    binned = [bin_and_gather_packed(_camera(projs, c), width, height, cfg)
-              for c in range(n_cam)]
+    with span("splat.bin"):
+        binned = [bin_and_gather_packed(_camera(projs, c), width, height,
+                                        cfg)
+                  for c in range(n_cam)]
     T = binned[0][2].shape[0]
     P = cfg.tile_size * cfg.tile_size
     geom = torch.cat([b[0] for b in binned])                # (C*T, 8, K)
@@ -188,10 +194,11 @@ def composite_tiled_batch(
                                      cfg.tile_size, pad_value=float("inf"))
                           for d in depth_limit])            # (C*T, P)
     if compositor == "kernel":
-        out_tiles = Composite.apply(
-            geom, feat, counts,
-            None if dlim is None else dlim[..., None].contiguous(),
-            tiles_x, cfg, T, dlim is not None)
+        with span("splat.composite"):
+            out_tiles = Composite.apply(
+                geom, feat, counts,
+                None if dlim is None else dlim[..., None].contiguous(),
+                tiles_x, cfg, T, dlim is not None)
     elif compositor == "gathered":
         t_idx = torch.arange(n_cam * T, device=geom.device) % T
         out_tiles = composite_gathered(geom, feat, counts, tiles_x, cfg, dlim,

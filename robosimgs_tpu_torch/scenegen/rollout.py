@@ -29,6 +29,7 @@ from robosimgs_tpu_torch.render.config import RenderConfig
 from robosimgs_tpu_torch.render.mesh_raster import MeshRasterConfig
 from robosimgs_tpu_torch.scenegen.urdf_fk import URDFModel
 from robosimgs_tpu_torch.utils.meshio import Mesh
+from robosimgs_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -94,13 +95,16 @@ def rollout_meshes(objects: Sequence[ArticulatedObject],
     NaN entry is the object's resting pose)."""
     dof_split = np.cumsum([o.model.dof for o in objects])[:-1] if objects else []
     for t in range(trajectory.shape[0]):
-        qs = np.split(np.asarray(trajectory[t]), dof_split) if objects else []
-        meshes = []
-        for i, (obj, q) in enumerate(zip(objects, qs)):
-            base = base_poses[t, i] if base_poses is not None else None
-            if base is not None and np.isnan(base).any():
-                base = None   # never listed in the trajectory: resting pose
-            meshes.extend(obj.posed_meshes(q, base_pose=base, device=device))
+        with span("rollout.pose"):
+            qs = (np.split(np.asarray(trajectory[t]), dof_split) if objects
+                  else [])
+            meshes = []
+            for i, (obj, q) in enumerate(zip(objects, qs)):
+                base = base_poses[t, i] if base_poses is not None else None
+                if base is not None and np.isnan(base).any():
+                    base = None   # never in the trajectory: resting pose
+                meshes.extend(obj.posed_meshes(q, base_pose=base,
+                                               device=device))
         yield meshes
 
 
@@ -154,18 +158,22 @@ def render_rollout(
     cameras = [c.to(dev) for c in cameras]
     frames = []
     with torch.no_grad():
-        for meshes in rollout_meshes(objects, trajectory, base_poses, dev):
-            frame = torch.stack([
-                render_composite(background, cam, meshes, cfg, mesh_cfg,
-                                 background=bg_color, impl=impl)["rgb"]
-                for cam in cameras])
-            frames.append(_quantize_u8(frame) if as_uint8 else frame)
+        posed = rollout_meshes(objects, trajectory, base_poses, dev)
+        for _ in range(trajectory.shape[0]):
+            with span("rollout.frame"):
+                meshes = next(posed)
+                frame = torch.stack([
+                    render_composite(background, cam, meshes, cfg, mesh_cfg,
+                                     background=bg_color, impl=impl)["rgb"]
+                    for cam in cameras])
+                frames.append(_quantize_u8(frame) if as_uint8 else frame)
         frames = torch.stack(frames)
         if camera_mesh is not None:
             from robosimgs_tpu_torch.parallel import comm
             frames = comm.all_gather(frames, camera_mesh.get_group("data"),
                                      dim=1)
-        return frames.cpu().numpy()
+        with span("rollout.to_host"):
+            return frames.cpu().numpy()
 
 
 def open_close_trajectory(model: URDFModel, steps: int) -> np.ndarray:

@@ -61,6 +61,7 @@ from robosimgs_tpu_torch.render.tiles import num_tiles
 from robosimgs_tpu_torch.tools import workloads
 from robosimgs_tpu_torch.tools.k_equiv import device_name
 from robosimgs_tpu_torch.train.losses import psnr
+from robosimgs_tpu_torch.utils.profiling import device_rows
 
 ITERS = 20
 K_LOSSLESS = 8192
@@ -164,8 +165,7 @@ def idle_share(fn, dev):
         fn()
         _sync(dev)
         wall = (time.perf_counter() - t0) * 1e3
-    busy = sum(e.self_device_time_total for e in prof.key_averages()
-               if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    busy = sum(e.self_device_time_total for e in device_rows(prof)) / 1e3
     return 1.0 - busy / wall
 
 

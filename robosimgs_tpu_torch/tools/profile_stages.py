@@ -60,6 +60,7 @@ from robosimgs_tpu_torch.train.data import Frame
 from robosimgs_tpu_torch.train.losses import photometric_loss
 from robosimgs_tpu_torch.train.optim import float_params, make_optimizer
 from robosimgs_tpu_torch.train.trainer import Trainer, make_train_step
+from robosimgs_tpu_torch.utils.profiling import device_rows
 
 # the stages in the JAX script's order and under its names; the key
 # sort's name carries its key count, as there ("sort(1000k)")
@@ -342,8 +343,7 @@ def profile_stages(g, cam, cfg: RenderConfig, reps: int = 30) -> dict:
     ops = attribute_ops(prof, 1, on_device)
     # every device operation, those no host operation launched included
     # (a kernel launched by ctypes outside any recorded operation)
-    total_ms = (sum(e.self_device_time_total for e in prof.key_averages()
-                    if e.device_type == torch.autograd.DeviceType.CUDA) / 1e3
+    total_ms = (sum(e.self_device_time_total for e in device_rows(prof)) / 1e3
                 if on_device else sum(r[3] for r in ops))
     tiles_x, tiles_y = num_tiles(cam.width, cam.height, cfg.tile_size)
     return {"tool": "profile_stages", "device": device_name(dev),

@@ -54,6 +54,7 @@ from robosimgs_tpu_torch.train.optim import (FLOAT_FIELDS, AdamGroup,
                                              OptimConfig, OptState,
                                              float_params, make_optimizer,
                                              reset_slots_in_opt_state)
+from robosimgs_tpu_torch.utils.profiling import span
 
 
 def _zero_opacity_moments(opt_state: OptState) -> OptState:
@@ -207,6 +208,7 @@ def make_train_step(cfg: TrainConfig, impl: str) -> Callable:
     optimizer = _optimizer(cfg)
     absgrad = cfg.render.absgrad
 
+    @span("train.step")
     def train_step(state: TrainState, camera: Camera, target: torch.Tensor,
                    frame_idx=0, target_depth: Optional[torch.Tensor] = None):
         g = state.gaussians
@@ -281,14 +283,15 @@ def make_train_step(cfg: TrainConfig, impl: str) -> Callable:
         inputs = [params[k] for k in names] + [offset]
         if absgrad:
             inputs.append(absp)
-        grads = torch.autograd.grad(loss, inputs, allow_unused=True)
+        with span("train.backward"):
+            grads = torch.autograd.grad(loss, inputs, allow_unused=True)
         grads = [torch.zeros_like(x) if gr is None else gr
                  for x, gr in zip(inputs, grads)]
         p_grads = dict(zip(names, grads))
         # densification signal: absgrad (per-pixel |grad| sums, no sign
         # cancellation) when enabled, else the signed screen gradient
         densify_grad = grads[-1] if absgrad else grads[len(names)]
-        with torch.no_grad():
+        with torch.no_grad(), span("train.optim"):
             dstate = update_stats(state.densify_state, densify_grad,
                                   proj.radii.detach(), proj.valid,
                                   camera.width, camera.height)
@@ -494,10 +497,12 @@ class Trainer:
                 log_js = [j for j in range(fused)
                           if (step + j) % cfg.log_every == 0]
                 if log_js:
-                    mhost = {k: v.cpu().numpy() for k, v in mstack.items()}
-                    for j in log_js:
-                        log({k: float(v[j]) for k, v in mhost.items()},
-                            step + j)
+                    with span("train.log"):
+                        mhost = {k: v.cpu().numpy()
+                                 for k, v in mstack.items()}
+                        for j in log_js:
+                            log({k: float(v[j]) for k, v in mhost.items()},
+                                step + j)
                 i += fused
                 step = step0 + i - 1      # the last step run, for events
             else:
@@ -512,17 +517,20 @@ class Trainer:
                 self.state, metrics = self._train_step(
                     self.state, self._cams[idx], target, idx, tdepth)
                 if step % cfg.log_every == 0:
-                    log({k: float(v) for k, v in metrics.items()}, step)
+                    with span("train.log"):
+                        log({k: float(v) for k, v in metrics.items()}, step)
                 i += 1
 
             if (cfg.dynamic_pool and step > 0
                     and step % cfg.densify_interval == 0
                     and step >= cfg.densify_from):
-                self._maybe_resize_pool(step)
+                with span("train.pool_resize"):
+                    self._maybe_resize_pool(step)
             if (cfg.densify_from <= step < cfg.densify_until
                     and step > 0 and step % cfg.densify_interval == 0):
-                self.state = self._densify_step(
-                    self.state, step >= cfg.densify.prune_scale3d_after)
+                with span("train.densify"):
+                    self.state = self._densify_step(
+                        self.state, step >= cfg.densify.prune_scale3d_after)
             if step > 0 and step % cfg.opacity_reset_interval == 0:
                 self.state = dataclasses.replace(
                     self.state,
