@@ -5,8 +5,15 @@
 
 Phases, each of which raises on a fault (nothing is caught):
   1. device  — card name, count, nvidia-smi name and power limit
-  2. build   — nvcc builds csrc/composite_fwd.cu and csrc/composite_bwd.cu,
-               one process each, together (seconds, ptxas report)
+  2. build   — nvcc builds csrc/composite_fwd.cu, csrc/composite_bwd.cu and
+               csrc/bin_cull_compact.cu, one process each, together
+               (seconds, ptxas report)
+  2b. cull   — binning's fused cull and compaction (bin_cull_compact) on
+               binning's own inputs at the staged shape (1M Gaussians at
+               512x512, M 48 over a 64-tile bbox) and the rollout's (200k
+               at four 640x480 cameras, M 80 over 100): bit for bit its
+               plain version's on every view, timed beside its byte bound
+               and the plain version
   3. kernel  — each kernel against its plain version on the card at the
                bench workload (100k Gaussians, SH 3, 256x256, K=384,
                M=10, bbox 12, two-tier 4/0.15): without a depth limit,
@@ -613,6 +620,7 @@ def main() -> int:
     from robosimgs_tpu_torch.render import _build, rasterize
     from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
     from robosimgs_tpu_torch.render.config import RenderConfig
+    from robosimgs_tpu_torch.render.cull import bin_cull_compact
     from robosimgs_tpu_torch.cli import train as cli_train
     from robosimgs_tpu_torch.render.kernels import (composite_bwd,
                                                     composite_bwd_plain,
@@ -648,11 +656,13 @@ def main() -> int:
 
     # 2. build: one nvcc per source, started together
     t_build = time.perf_counter()
-    for name, built in _build.build_all(["composite_fwd",
-                                         "composite_bwd"]).items():
+    for name, built in _build.build_all(["composite_fwd", "composite_bwd",
+                                         "bin_cull_compact"]).items():
         log(f"[2 build] {name}: {built.seconds:.1f} s "
             f"{'(already built)' if not built.ptxas else built.ptxas}")
-    log(f"  both built in {time.perf_counter() - t_build:.1f} s")
+    log(f"  all built in {time.perf_counter() - t_build:.1f} s")
+    # 2b. binning's fused cull and compaction against its plain version
+    cull = cull_compact(dev, smi)
 
     # 3. kernel against plain on the card, bench workload
     g, cam, cfg = bench_scene(dev)
@@ -870,12 +880,18 @@ def main() -> int:
                             dynamic_pool=False, log_every=1)
     trainer = Trainer(cfg_train, g, [Frame(camera=cam, image=target)])
     composite_fwd.launches = composite_bwd.launches = 0
+    bin_cull_compact.launches = 0
     trainer.run(iterations=3, progress=False)
     torch.cuda.synchronize()
     launches_train = (composite_fwd.launches, composite_bwd.launches)
+    launches_cull = bin_cull_compact.launches
+    if launches_cull != 3:
+        raise AssertionError(f"3 steps binned {launches_cull} times "
+                             f"through bin_cull_compact")
     losses = [h["loss"] for h in trainer.history]
     log(f"[4 main] Trainer 3 steps at {res}x{res}: launches fwd "
-        f"{launches_train[0]} bwd {launches_train[1]}, loss "
+        f"{launches_train[0]} bwd {launches_train[1]} cull "
+        f"{launches_cull}, loss "
         + " ".join(f"{x:.6f}" for x in losses)
         + f", overflow {[h['overflow'] for h in trainer.history]}")
     if launches_train != (3, 3):
@@ -1240,10 +1256,97 @@ def main() -> int:
         "ring1m_launches": last["ring_launches"][1],
         **{f"ring1m_{k}": last[f"ring1m_bwd_{k}"]
            for k in ("ms", "plain_ms", "bound_ms", "bound_by",
-                     "max_abs_err")}}]}))
+                     "max_abs_err")}}, {
+        "name": "bin_cull_compact", "route": "cuda",
+        "source": "robosimgs_tpu_torch/csrc/bin_cull_compact.cu",
+        "replaces": None, "launches": launches_cull,
+        "max_abs_err": cull["max_abs_err"], "library_ms": None,
+        **{k: cull[f"staged_{k}"]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")},
+        **{f"rollout_{k}": cull[f"rollout_{k}"]
+           for k in ("ms", "plain_ms", "bound_ms", "bound_by")}}]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": kind,
                                            "count": count}}))
     return 0
+
+
+def cull_compact(dev, smi: str) -> dict:
+    """Phase 2b: binning's fused cull and compaction (render/cull.py) on
+    the inputs bin_and_gather_packed hands it at the staged and the
+    rollout shape, with the benchmark's capacities: bit for bit the
+    plain version's on every view (its max_abs_err is the largest
+    difference of any output), the kernel timed (CUDA events, 50
+    launches) beside the least time its bytes take and the plain
+    version's time on view 0."""
+    import dataclasses
+
+    import torch
+
+    from robosimgs_tpu_torch.render import binning
+    from robosimgs_tpu_torch.render.cull import (bin_cull_compact,
+                                                 bin_cull_compact_plain)
+    from robosimgs_tpu_torch.render.project import project
+    from robosimgs_tpu_torch.tools.workloads import (rollout_scene,
+                                                     staged_config,
+                                                     staged_scene, time_ms)
+    t2 = time.perf_counter()
+    g, cam = staged_scene(dev)
+    g_r, cams_r, cfg_r = rollout_scene(dev)
+    shapes = {
+        "staged": (g, [cam], staged_config(k=4096, split=12, spill_frac=0.08,
+                                           m=48, bbox=64)),
+        "rollout": (g_r, cams_r, dataclasses.replace(
+            cfg_r, max_tiles_per_gaussian=80, bbox_tiles_per_gaussian=100,
+            two_tier_spill_frac=0.46))}
+    out, worst = {}, 0
+    original = binning.bin_cull_compact
+    for tag, (g_k, cams_k, cfg_k) in shapes.items():
+        calls = []
+
+        def capture(*args, **kw):
+            calls.append((args, kw))
+            return original(*args, **kw)
+
+        binning.bin_cull_compact = capture
+        try:
+            with torch.no_grad():
+                for c in cams_k:
+                    binning.bin_and_gather_packed(project(g_k, c, cfg_k),
+                                                  c.width, c.height, cfg_k)
+        finally:
+            binning.bin_cull_compact = original
+        for args, kw in calls:
+            got = bin_cull_compact(*args, **kw)
+            want = bin_cull_compact_plain(*args, **kw)
+            torch.cuda.synchronize()
+            worst = max(worst, max(int((a - b).abs().max())
+                                   for a, b in zip(got, want)))
+        args, kw = calls[0]
+        tid, surv, _ = bin_cull_compact(*args, **kw)
+        n, M, Mb = args[0].shape[0], kw["max_tiles"], kw["n_slots"]
+        ms = time_ms(lambda: bin_cull_compact(*args, **kw), reps=50)
+        plain_ms = time_ms(lambda: bin_cull_compact_plain(*args, **kw),
+                           reps=5, warmup=1)
+        # read once: the bbox row, the cut, the 4 int64 edges; written
+        # once: the row of M tile ids, surv and cover
+        nbytes = n * (7 * 4 + 4 * (args[1] is not None) + 4 * 8) \
+            + n * (M * 8 + 2 * 8)
+        bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+        kept = int(surv.sum())
+        log(f"[2b cull] {tag}: {len(calls)} views, n={n}, M={M} of Mb={Mb}, "
+            f"kept {kept} of {n * Mb} slots ({100 * kept / (n * Mb):.2f} %), "
+            f"kernel vs plain max diff {worst} on every view; "
+            f"bin_cull_compact {ms:.4f} ms, plain {plain_ms:.4f} ms; bound "
+            f"{bound_ms:.6f} ms (bytes, {nbytes / 1e6:.1f} MB), share "
+            f"{bound_ms / ms:.4f}; library call: none ({smi})")
+        out.update({f"{tag}_ms": ms, f"{tag}_plain_ms": plain_ms,
+                    f"{tag}_bound_ms": bound_ms, f"{tag}_bound_by": "bytes"})
+    if worst != 0:
+        raise AssertionError(f"bin_cull_compact differs from its plain "
+                             f"version by {worst}")
+    out["max_abs_err"] = worst
+    log(f"  phase 2b {time.perf_counter() - t2:.1f} s")
+    return out
 
 
 # phase 15's depth: steps of the flagship (the 601st logs step 600),

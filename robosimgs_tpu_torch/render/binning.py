@@ -4,8 +4,10 @@ Port of robosimgs_tpu/render/binning.py's packed path
 (`bin_and_gather_packed`): Gaussians are permuted into global depth
 order, each one enumerates the tiles of its radius bbox (at most
 `bbox_tiles_per_gaussian`), an exact ellipse-tile cull drops tiles it
-cannot reach, and one sort of (tile id, depth rank) keys groups the
-survivors by tile in front-to-back order. Each tile keeps its closest
+cannot reach and its survivors are compacted into its first
+`max_tiles_per_gaussian` slots (render/cull.py: one kernel on the card),
+and one sort of (tile id, depth rank) keys groups the survivors by tile
+in front-to-back order. Each tile keeps its closest
 `tile_capacity` entries; truncation and overflow are counted in
 `BinStats`, never silent.
 
@@ -32,9 +34,12 @@ import math
 import torch
 
 from robosimgs_tpu_torch.render.config import RenderConfig
+from robosimgs_tpu_torch.render.cull import bin_cull_compact
 from robosimgs_tpu_torch.render.project import Projected
-from robosimgs_tpu_torch.render.tiles import num_tiles, tile_bbox
-from robosimgs_tpu_torch.utils.profiling import count, recording, span
+from robosimgs_tpu_torch.render.tiles import (_bbox_slots, _cull_keep,
+                                              cull_qcut, num_tiles, tile_bbox)
+from robosimgs_tpu_torch.utils.profiling import (count, launch_range,
+                                                 recording, span)
 
 
 @dataclasses.dataclass
@@ -45,19 +50,6 @@ class BinStats:
     overflowed_tiles: torch.Tensor     # tiles with more than capacity entries
     max_tile_count: torch.Tensor       # max entries wanted by any tile
     total_pairs: torch.Tensor          # total (gaussian, tile) intersections
-
-
-def _bbox_slots(tx0, ty0, tx1, ty1, n_slots: int, tiles_x: int):
-    """Row-major enumeration of up to n_slots tiles of each inclusive
-    tile bbox: (tid, row, col, in_bbox) (n, n_slots) and cover (n,)."""
-    bw = (tx1 - tx0 + 1).clamp_min(0)
-    cover = bw * (ty1 - ty0 + 1).clamp_min(0)
-    e = torch.arange(n_slots, device=tx0.device)[None, :]
-    bw_safe = bw.clamp_min(1)[:, None]
-    row = torch.div(e, bw_safe, rounding_mode="floor")
-    col = e - row * bw_safe
-    tid = (ty0[:, None] + row) * tiles_x + (tx0[:, None] + col)
-    return tid, row, col, e < cover[:, None], cover
 
 
 def bin_rects(tx0: torch.Tensor, ty0: torch.Tensor, tx1: torch.Tensor,
@@ -125,47 +117,6 @@ def per_gaussian_cover(proj: Projected, width: int, height: int,
         keep = keep & _cull_keep(proj.means2d.detach(), cop, tx0, ty0, col,
                                  row, cfg.tile_size, cfg.alpha_min)
     return keep.sum(dim=1).to(torch.int32)
-
-
-def _cull_keep(m2d, cop, tx0, ty0, col, row, tile_size: int,
-               alpha_min: float) -> torch.Tensor:
-    """Exact ellipse-tile intersection keep-mask for (N, M) candidate
-    tiles: keep iff min over the tile's pixel-center rect of the
-    quadratic form q = .5*ca*u^2 + cb*u*v + .5*cc*v^2 is <=
-    log(op / alpha_min) — a dropped tile has alpha < alpha_min at EVERY
-    pixel, so the compositor keep-mask zeroes it anyway; culling is
-    lossless. The rect min of the PSD quadratic is 0 if the mean is
-    inside, else the min over the four clamped edge restrictions.
-
-    m2d (N, 2) screen means; cop (N, 4) [conic_a, conic_b, conic_c,
-    opacity]; tx0/ty0 (N,) bbox tile origins; col/row (N, M) candidate
-    offsets within the bbox.
-    """
-    ts_f = float(tile_size)
-    ca, cb, cc, op = (cop[:, 0:1], cop[:, 1:2], cop[:, 2:3], cop[:, 3:4])
-    u0 = (tx0[:, None] + col).float() * ts_f - m2d[:, 0:1]
-    v0 = (ty0[:, None] + row).float() * ts_f - m2d[:, 1:2]
-    u1 = u0 + (ts_f - 1.0)
-    v1 = v0 + (ts_f - 1.0)
-    ca_s = torch.clamp_min(ca, 1e-12)
-    cc_s = torch.clamp_min(cc, 1e-12)
-
-    def edge_u(uf):  # u fixed, v free in [v0, v1]
-        vs = torch.minimum(torch.maximum(-cb * uf / cc_s, v0), v1)
-        return (0.5 * ca) * uf * uf + cb * uf * vs + (0.5 * cc) * vs * vs
-
-    def edge_v(vf):  # v fixed, u free in [u0, u1]
-        us = torch.minimum(torch.maximum(-cb * vf / ca_s, u0), u1)
-        return (0.5 * ca) * us * us + cb * us * vf + (0.5 * cc) * vf * vf
-
-    qmin = torch.minimum(torch.minimum(edge_u(u0), edge_u(u1)),
-                         torch.minimum(edge_v(v0), edge_v(v1)))
-    inside = (u0 <= 0.0) & (0.0 <= u1) & (v0 <= 0.0) & (0.0 <= v1)
-    qmin = torch.where(inside, torch.zeros_like(qmin), qmin)
-    qcut = torch.log(torch.clamp_min(op, 1e-12) / alpha_min)
-    # cull only with a definitely-PSD conic (conservative otherwise)
-    psd = (ca > 0.0) & (cc > 0.0)
-    return ~psd | (qmin <= qcut)
 
 
 def pack16(proj: Projected) -> torch.Tensor:
@@ -265,29 +216,19 @@ def bin_and_gather_packed(proj: Projected, width: int, height: int,
         valid_s = radii_s > 0.0
         tx0, ty0, tx1, ty1 = tile_bbox(m2d_s, radii_s, tiles_x, tiles_y,
                                        cfg.tile_size)
-        # enumerate Mb bbox tiles; after the cull, survivors are
-        # compacted down to M slots by a row-local sort (sentinel T
-        # sorts last)
-        Mb = max(cfg.bbox_tiles_per_gaussian, M)
-        tid, row, col, in_bbox, cover = _bbox_slots(tx0, ty0, tx1, ty1, Mb,
-                                                    tiles_x)
-        valid_e = in_bbox & valid_s[:, None]
-        if cfg.exact_tile_cull:
-            valid_e = valid_e & _cull_keep(
-                m2d_s, bbox_s[:, 3:7], tx0, ty0, col, row,
-                cfg.tile_size, cfg.alpha_min)
-        tid = torch.where(valid_e, tid, torch.full_like(tid, T))
-        surv = valid_e.sum(dim=1)                          # per-gaussian cover
+        qcut = (cull_qcut(bbox_s[:, 6], cfg.alpha_min)
+                if cfg.exact_tile_cull else None)
 
+    # enumerate Mb bbox tiles, cull them and compact each row's survivors
+    # into M slots, sentinel T at the tail (one kernel on the card)
+    Mb = max(cfg.bbox_tiles_per_gaussian, M)
+    with span("bin.compact", device_time=True), \
+            launch_range("bin_cull_compact"):
+        tid, surv, cover = bin_cull_compact(
+            bbox_s, qcut, tx0, ty0, tx1, ty1, tiles_x=tiles_x, n_tiles=T,
+            n_slots=Mb, max_tiles=M, tile_size=cfg.tile_size)
     Ms = cfg.two_tier_split
     two_tier = 0 < Ms < M
-    with span("bin.compact", device_time=True):
-        if Mb > M:
-            tid = torch.sort(tid, dim=1).values[:, :M]
-        elif two_tier:
-            # two-tier needs sentinels at the row tail (the cull leaves
-            # holes)
-            tid = torch.sort(tid, dim=1).values
 
     # entries are depth-ordered (rank = row index), so sorting the
     # int64 key (tid << bits | rank) groups by tile, front to back
@@ -297,7 +238,7 @@ def bin_and_gather_packed(proj: Projected, width: int, height: int,
         spill_missed = torch.zeros((n,), dtype=torch.bool, device=dev)
         spill_dropped_pairs = 0
         if two_tier:
-            # tier 1: everyone's first Ms (row-sorted) slots; tier 2: the
+            # tier 1: everyone's first Ms (compacted) slots; tier 2: the
             # S widest gaussians contribute slots Ms..M (rows that don't
             # actually spill contribute inert sentinel keys)
             S = min(n, max(128, -(-int(cfg.two_tier_spill_frac * n) // 128)

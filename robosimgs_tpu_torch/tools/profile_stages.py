@@ -11,8 +11,9 @@ port's kernels in place of the Pallas pair), the mean of --reps calls
 after warm-up (CUDA events on a card, the host's clock on the CPU):
 projection; binning's sub-stages as `bin_and_gather_packed` runs them
 (the depth argsort, the permute of the narrow bbox inputs, the tile ids
-with the exact cull and the row compaction, the int64 key pack, the key
-sort, searchsorted, the selection window, the packed feature gather);
+with the exact cull and the row compaction (one kernel on a card), the
+int64 key pack, the key sort, searchsorted, the selection window, the
+packed feature gather);
 the transpose of the gather (binning's backward as the train step runs
 it: each Gaussian's rows summed over its kept entries); binning whole;
 each compositing kernel; L1 + SSIM forward and backward; the per-group
@@ -45,14 +46,13 @@ import sys
 
 import torch
 
-from robosimgs_tpu_torch.render.binning import (_bbox_slots, _cull_keep,
-                                                bin_and_gather_packed,
-                                                pack16)
+from robosimgs_tpu_torch.render.binning import bin_and_gather_packed, pack16
 from robosimgs_tpu_torch.render.config import RenderConfig
+from robosimgs_tpu_torch.render.cull import bin_cull_compact
 from robosimgs_tpu_torch.render.kernels import composite_bwd, composite_fwd
 from robosimgs_tpu_torch.render.project import project
 from robosimgs_tpu_torch.render.rasterize import rasterize
-from robosimgs_tpu_torch.render.tiles import num_tiles, tile_bbox
+from robosimgs_tpu_torch.render.tiles import cull_qcut, num_tiles, tile_bbox
 from robosimgs_tpu_torch.tools import workloads
 from robosimgs_tpu_torch.tools.k_equiv import (device_name, loss_and_grads,
                                                time_train_step, train_config)
@@ -131,19 +131,12 @@ def binning_stages(proj, width: int, height: int, cfg: RenderConfig):
         m2d_s, radii_s = bbox_s[:, 0:2], bbox_s[:, 2]
         tx0, ty0, tx1, ty1 = tile_bbox(m2d_s, radii_s, tiles_x, tiles_y,
                                        cfg.tile_size)
-        tid, row, col, in_bbox, cover = _bbox_slots(tx0, ty0, tx1, ty1, Mb,
-                                                    tiles_x)
-        valid_e = in_bbox & (radii_s > 0.0)[:, None]
-        if cfg.exact_tile_cull:
-            valid_e = valid_e & _cull_keep(m2d_s, bbox_s[:, 3:7], tx0, ty0,
-                                           col, row, cfg.tile_size,
-                                           cfg.alpha_min)
-        tid = torch.where(valid_e, tid, torch.full_like(tid, T))
-        if Mb > M:
-            tid = torch.sort(tid, dim=1).values[:, :M]
-        elif two_tier:
-            tid = torch.sort(tid, dim=1).values
-        return tid, valid_e.sum(dim=1)
+        qcut = (cull_qcut(bbox_s[:, 6], cfg.alpha_min)
+                if cfg.exact_tile_cull else None)
+        tid, surv, _ = bin_cull_compact(
+            bbox_s, qcut, tx0, ty0, tx1, ty1, tiles_x=tiles_x, n_tiles=T,
+            n_slots=Mb, max_tiles=M, tile_size=cfg.tile_size)
+        return tid, surv
 
     @stage("key-pack")
     def key_pack():

@@ -7,6 +7,9 @@ program's own spans and counters.
                     it, the recorder's summary() of what it recorded
   span(name)      — a named range of the program, as a context manager
                     or a decorator
+  launch_range(n) — an operation's range around a kernel launched through
+                    ctypes, so that the profiler counts the kernel's
+                    device time in the launching file
   count(name, v)  — adds v to a named counter
   summary()       — per span name: calls, roots, host ms, self host ms,
                     device ms; and the counters' values
@@ -196,6 +199,28 @@ def span(name: str, device_time: bool = False):
             off = _OFF[(name, device_time)] = _Off(name, device_time)
         return off
     return _On(name, device_time)
+
+
+_NULL = contextlib.nullcontext()
+
+
+def launch_range(name: str):
+    """A profiler range to enter, in the launching file's own frame,
+    around a kernel launched through ctypes (no torch operation around
+    it): `with launch_range("bin_cull_compact"): lib.launch(...)`.
+
+    The profiler ties a kernel's device time to the innermost range of
+    an operation open at its launch; the spans' `record_function` ranges
+    are user annotations, which get the kernel only as a device range,
+    so a reading by operation and file (the benchmark's per-layer device
+    ms) would count it nowhere. This range is of an operation's kind (a
+    `cpu_op` named `name` in the trace, not a user annotation), and
+    starts in the caller's `with`, so the profiler places it, and the
+    kernel's device time, in the launching file. A shared no-op while
+    nothing records."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _NULL
+    return torch._C._profiler._RecordFunctionFast(name)
 
 
 def _decorated(name: str, device_time: bool, fn):

@@ -1,6 +1,7 @@
 """The CUDA compositing kernels against their plain torch versions, one
 train step through them, the unpacked binner against the packed one,
-and the diffusion policy's forward and train step, on the card.
+binning's fused cull and compaction against its plain version, and the
+diffusion policy's forward and train step, on the card.
 
 Marked `cuda`; every test skips without a CUDA device (decided in the
 fixture, never at import). On a machine with an H100, nvcc and no JAX:
@@ -14,11 +15,14 @@ import numpy as np
 import pytest
 import torch
 
+from cull_cases import cull_inputs, row_sort_path
 from robosimgs_tpu_torch.core.camera import Camera
 from robosimgs_tpu_torch.core.types import Gaussians
 from robosimgs_tpu_torch.render import rasterize
 from robosimgs_tpu_torch.render.binning import bin_and_gather_packed
 from robosimgs_tpu_torch.render.config import RenderConfig
+from robosimgs_tpu_torch.render.cull import (bin_cull_compact,
+                                             bin_cull_compact_plain)
 from robosimgs_tpu_torch.render.kernels import (BK, LT_GROUP, bwd_splits,
                                                 composite_bwd,
                                                 composite_bwd_plain,
@@ -26,11 +30,13 @@ from robosimgs_tpu_torch.render.kernels import (BK, LT_GROUP, bwd_splits,
                                                 composite_fwd_plain,
                                                 footprint_misses)
 from robosimgs_tpu_torch.render.project import project
-from robosimgs_tpu_torch.render.tiles import num_tiles
+from robosimgs_tpu_torch.render.tiles import cull_qcut, num_tiles
 from robosimgs_tpu_torch.tools.quadrants import (forward_diffs,
                                                  quadrant_blocks,
                                                  quadrant_diffs)
-from robosimgs_tpu_torch.tools.workloads import bench_config, saturated_scene
+from robosimgs_tpu_torch.tools.workloads import (bench_config, rollout_scene,
+                                                 saturated_scene,
+                                                 staged_config, staged_scene)
 from robosimgs_tpu_torch.train.data import Frame
 from robosimgs_tpu_torch.train.trainer import TrainConfig, Trainer
 
@@ -736,5 +742,120 @@ def test_segment_transpose_keeps_the_gradient_bits(device, kw, monkeypatch):
             grads.append(torch.autograd.grad((out["rgb"] * w).sum(),
                                              list(params.values())))
     for k, a, b in zip(fields, *grads):
+        assert torch.equal(a, b), k
+        assert bool((a != 0).any()), k
+
+
+# binning's fused cull and compaction (render/cull.py, csrc/
+# bin_cull_compact.cu): bit for bit the plain version's
+
+@pytest.mark.parametrize("Mb,M,exact,ts", [(24, 12, True, 16),
+                                           (16, 16, True, 16),
+                                           (24, 12, False, 16),
+                                           (30, 10, True, 12)],
+                         ids=["Mb>M", "Mb=M", "cull-off", "12px"])
+def test_cull_compact_kernel_matches_plain_on_edge_cases(device, Mb, M,
+                                                         exact, ts):
+    """Splats across the border, bboxes over Mb tiles, more survivors
+    than M, invalid splats, conics that are not PSD or NaN, opacities
+    under the clamp (tests/cull_cases.py)."""
+    bbox, edges, tiles_x, T = cull_inputs(seed=Mb + M + ts, n=20000, ts=ts,
+                                          device=device)
+    qcut = cull_qcut(bbox[:, 6], 1.0 / 255.0) if exact else None
+    kw = dict(tiles_x=tiles_x, n_tiles=T, n_slots=Mb, max_tiles=M,
+              tile_size=ts)
+    before = bin_cull_compact.launches
+    got = bin_cull_compact(bbox, qcut, *edges, **kw)
+    torch.cuda.synchronize()
+    assert bin_cull_compact.launches == before + 1
+    want = bin_cull_compact_plain(bbox, qcut, *edges, **kw)
+    ref = row_sort_path(bbox, edges, tiles_x, T, Mb, M, exact, ts)
+    for a, b, c in zip(got, want, ref):
+        assert a.is_cuda and a.dtype == torch.int64
+        assert torch.equal(a, b) and torch.equal(a, c)
+    assert bool((got[1] == 0).any()) and bool((got[0] < T).any())
+    if Mb > M:
+        assert bool((got[1] > M).any())
+
+
+def _real_views(device, which):
+    """(Gaussians, cameras, RenderConfig) at a configuration's real shape
+    and the benchmark's capacities: the staged 1M Gaussians at 512x512
+    (M 48 over a 64-tile bbox, two-tier 12, K 4,096) or the rollout's
+    200k at four 640x480 cameras (M 80 over 100, two-tier 12, K 512)."""
+    if which == "staged":
+        g, cam = staged_scene(device)
+        return g, [cam], staged_config(k=4096, split=12, spill_frac=0.08,
+                                       m=48, bbox=64)
+    g, cams, cfg = rollout_scene(device)
+    return g, cams, dataclasses.replace(
+        cfg, max_tiles_per_gaussian=80, bbox_tiles_per_gaussian=100,
+        two_tier_spill_frac=0.46)
+
+
+@pytest.mark.parametrize("which", ["staged", "rollout"])
+def test_cull_compact_kernel_matches_plain_at_real_shapes(device, which,
+                                                          monkeypatch):
+    """On binning's own inputs at each view: the kernel's (tid, surv,
+    cover) against the plain version's, bitwise; one launch a binning
+    call; bin_and_gather_packed's blocks, counts, stats and selection
+    with the kernel against with the plain version in its place."""
+    from robosimgs_tpu_torch.render import binning
+    g, cams, cfg = _real_views(device, which)
+    calls = []
+
+    def capture(*args, **kw):
+        calls.append((args, kw))
+        return bin_cull_compact(*args, **kw)
+
+    before = bin_cull_compact.launches
+    with monkeypatch.context() as mp, torch.no_grad():
+        mp.setattr(binning, "bin_cull_compact", capture)
+        fused = [bin_and_gather_packed(project(g, c, cfg), c.width, c.height,
+                                       cfg, return_sel=True) for c in cams]
+    torch.cuda.synchronize()
+    assert bin_cull_compact.launches - before == len(calls) == len(cams)
+    for args, kw in calls:
+        got = bin_cull_compact(*args, **kw)
+        want = bin_cull_compact_plain(*args, **kw)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert bool((got[1] > 0).any())
+    with monkeypatch.context() as mp, torch.no_grad():
+        mp.setattr(binning, "bin_cull_compact", bin_cull_compact_plain)
+        plain = [bin_and_gather_packed(project(g, c, cfg), c.width, c.height,
+                                       cfg, return_sel=True) for c in cams]
+    for (geom, feat, counts, stats, sel), (pg, pf, pc, ps, psel) in zip(
+            fused, plain):
+        assert torch.equal(geom, pg) and torch.equal(feat, pf)
+        assert torch.equal(counts, pc) and torch.equal(sel, psel)
+        for f in dataclasses.fields(stats):
+            assert torch.equal(getattr(stats, f.name), getattr(ps, f.name))
+
+
+@pytest.mark.parametrize("which", ["staged", "rollout"])
+def test_cull_compact_keeps_the_gradient_bits(device, which, monkeypatch):
+    """A view rendered and differentiated through _GatherRows with the
+    kernel and with the plain version in its place: the image and every
+    parameter's gradient are the same bits."""
+    from robosimgs_tpu_torch.render import binning
+    g, cams, cfg = _real_views(device, which)
+    cam = cams[0]
+    w = torch.randn((cam.height, cam.width, 3),
+                    generator=torch.Generator().manual_seed(5)).to(device)
+    fields = ("means", "quats", "log_scales", "logit_opacities", "sh_dc",
+              "sh_rest")
+    runs = []
+    for fn in (bin_cull_compact, bin_cull_compact_plain):
+        with monkeypatch.context() as mp:
+            mp.setattr(binning, "bin_cull_compact", fn)
+            params = {k: getattr(g, k).clone().requires_grad_(True)
+                      for k in fields}
+            out = rasterize(g.replace(**params), cam, cfg, impl="tiled")
+            runs.append((out["rgb"], torch.autograd.grad(
+                (out["rgb"] * w).sum(), list(params.values()))))
+    (rgb, grads), (prgb, pgrads) = runs
+    assert torch.equal(rgb, prgb)
+    for k, a, b in zip(fields, grads, pgrads):
         assert torch.equal(a, b), k
         assert bool((a != 0).any()), k

@@ -148,6 +148,34 @@ def test_off_spans_and_counts_make_no_record_event_or_operation(monkeypatch):
     assert summary() == {"spans": {}, "counters": {}}
 
 
+def test_a_launch_range_is_an_operation_placed_where_it_is_entered():
+    """`launch_range`, around a kernel launched through ctypes: off, the
+    shared no-op; under the profiler, a range of an operation's kind (a
+    cpu_op, not a user annotation, so the profiler ties a kernel launched
+    inside it to it) whose place is the frame that entered it. A span's
+    own range is placed in utils/profiling.py, where the benchmark's
+    reading by file would count such a kernel."""
+    from torch.profiler import ProfilerActivity, profile
+    assert profiling.launch_range("k") is profiling.launch_range("j")
+
+    def launcher():
+        with span("outer"), profiling.launch_range("k.launch"):
+            torch.zeros(4).add_(1)
+
+    with profile(activities=[ProfilerActivity.CPU], with_stack=True,
+                 experimental_config=torch.profiler._ExperimentalConfig(
+                     verbose=True)) as prof:
+        launcher()
+    (rng,) = [e for e in prof.events() if e.name == "k.launch"]
+    (outer,) = [e for e in prof.events() if e.name == "outer"]
+    assert not rng.is_user_annotation and outer.is_user_annotation
+    assert "test_torch_spans.py" in rng.stack[0]
+    assert "launcher" in rng.stack[0]
+    ours = [f for f in outer.stack if "robosimgs_tpu_torch/" in f]
+    assert "utils/profiling.py" in ours[0]
+    assert set(summary()["spans"]) == {"outer"}
+
+
 class _Event:
     """A stand-in for torch.cuda.Event: where and in which order it was
     recorded; 2.5 ms from any start to its end."""
