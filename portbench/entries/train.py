@@ -113,26 +113,31 @@ def _checked_steps(trainer, start, checked: int) -> dict:
 
 def window(st: dict, seconds: float) -> dict:
     """Episodes of `episode` steps from the start state until `seconds`
-    have passed; the time per step is the whole window over its steps."""
+    have passed, each ended by a synchronise, its wall kept in
+    "episode_s"."""
     trainer, n = st["trainer"], st["cell"].traffic["episode"]
+    dev = st["cell"].device
     logs = []
-    steps = episodes = 0
-    program.sync(st["cell"].device)
-    t0 = time.perf_counter()
+    episode_s = []
+    program.sync(dev)
+    t0 = t1 = time.perf_counter()
     while True:
         trainer.state = st["start"]
         trainer.run(iterations=n, progress=False, on_log=logs.append)
-        steps += n
-        episodes += 1
-        if time.perf_counter() - t0 >= seconds:
+        program.sync(dev)
+        t2 = time.perf_counter()
+        episode_s.append(t2 - t1)
+        t1 = t2
+        if t2 - t0 >= seconds:
             break
-    program.sync(st["cell"].device)
     wall = time.perf_counter() - t0
+    steps = len(episode_s) * n
     trainer.state = st["start"]
     bad = sum(1 for m in logs if not math.isfinite(m["loss"]))
     failed = steps if st["truncated"] else min(steps, bad * n)
     return {"units": steps, "wall_s": wall, "latencies_s": None,
-            "attempted": steps, "failed": failed, "episodes": episodes}
+            "attempted": steps, "failed": failed, "episode_s": episode_s,
+            "episode_steps": n}
 
 
 def after_window(st: dict) -> None:

@@ -1,6 +1,7 @@
 """What the metric readers under portbench/metrics/ share. A reader is
 `read(ctx) -> float | None`; ctx holds the measured window ("window":
-units, wall_s, latencies_s, peak_bytes), "setup_s", and in a --trace 1
+units, wall_s, latencies_s, peak_bytes; training's also episode_s and
+episode_steps), "setup_s", and in a --trace 1
 run the reduced profile ("trace", tracing.reduce) and the needed work
 ("work", the entry's `work`). A reader that finds nothing to read
 returns None, and the metric is left out of the line."""
@@ -26,6 +27,17 @@ def per_unit_ms(ctx: dict):
     if not win["units"]:
         return None
     return win["wall_s"] * 1e3 / win["units"]
+
+
+def median_episode_ms(ctx: dict):
+    """ms a step of the window's median episode (each episode's wall over
+    its steps): every episode trains the same steps from the same start
+    state, so a burst of the shared host moves one episode, not this."""
+    win = ctx["window"]
+    eps = win.get("episode_s")
+    if not eps:
+        return None
+    return float(np.median(eps)) * 1e3 / win["episode_steps"]
 
 
 def p95_ms(ctx: dict):

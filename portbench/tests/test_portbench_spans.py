@@ -1,7 +1,8 @@
-"""The readers of the program's spans and counters (portbench/spans.py,
-the entries of portbench/spans.json): a traced small run of each cell
-reads every one listed for it, and a span the program no longer records
-under its name is named by `missing_metrics`."""
+"""The readers of the program's spans and counters (portbench/spans.py;
+their entries in BENCHMARK.json and, those that wait, in portbench/
+spans.json): a traced small run of each cell reads every one listed for
+it, and a span the program no longer records under its name is named by
+`missing_metrics`."""
 
 import json
 
@@ -10,13 +11,17 @@ import pytest
 from portbench import harness, spans
 from portbench.tests import small
 
-ENTRIES = json.loads((harness.HERE / "spans.json").read_text())["per_layer"]
+BENCH = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
+SPAN_SOURCES = ("program_span", "program_counter")
+LISTED = [m for m in BENCH["per_layer"] if m["source"] in SPAN_SOURCES]
+WAITING = json.loads((harness.HERE / "spans.json").read_text())["per_layer"]
+ENTRIES = LISTED + WAITING
 
 
 def _cell(name: str) -> harness.Cell:
-    """The small cell, its benchmark given the span entries."""
+    """The small cell, its benchmark given the entries that wait too."""
     c = small.cell(name, trace=True)
-    c.bench = {**c.bench, "per_layer": c.bench["per_layer"] + ENTRIES}
+    c.bench = {**c.bench, "per_layer": c.bench["per_layer"] + WAITING}
     return c
 
 
@@ -25,16 +30,19 @@ def _listed(c: harness.Cell) -> set:
 
 
 def test_the_entries_fit_the_benchmark():
-    bench = json.loads((harness.ROOT / "BENCHMARK.json").read_text())
-    cells = {w["name"] for w in bench["workloads"]}
-    e2e = {m["name"]: m for m in bench["end_to_end"]}
-    old = {m["name"] for m in bench["per_layer"]}
-    layers = {m["layer"] for m in bench["per_layer"]}
+    cells = {w["name"] for w in BENCH["workloads"]}
+    e2e = {m["name"]: m for m in BENCH["end_to_end"]}
+    listed = {m["name"] for m in BENCH["per_layer"]}
+    layers = {m["layer"] for m in BENCH["per_layer"]
+              if m["source"] not in SPAN_SOURCES}
+    assert {m["name"] for m in LISTED} == {
+        "slots_useful.train", "slots_useful.frame", "keys_useful.train",
+        "keys_useful.frame", "pose_ms.frame", "host_wait_ms.frame"}
+    assert all(m["name"] not in listed for m in WAITING)
     for m in ENTRIES:
         assert set(m) == {"name", "unit", "better", "source", "layer",
                           "moves", "workloads"}
-        assert m["name"] not in old and m["source"] in ("program_span",
-                                                        "program_counter")
+        assert m["source"] in SPAN_SOURCES
         assert set(m["workloads"]) <= set(e2e[m["moves"]]["workloads"])
         assert set(m["workloads"]) <= cells
         assert callable(harness.metric_reader(m["name"]).read)
