@@ -65,7 +65,8 @@ def build_parser():
                    help="profile one log interval of the run (the whole "
                         "run when it logs twice or less): write its Chrome "
                         "trace and span summary (utils/profiling.py) to DIR "
-                        "and print binning's counters")
+                        "and print the counters (binning's and the "
+                        "compositing kernels')")
     return p
 
 

@@ -68,7 +68,7 @@ from robosimgs_tpu_torch.render import _build
 from robosimgs_tpu_torch.render.config import RenderConfig
 from robosimgs_tpu_torch.render.gathered import (tile_alpha, tile_alpha_parts,
                                                  tile_pixel_coords)
-from robosimgs_tpu_torch.utils.profiling import span
+from robosimgs_tpu_torch.utils.profiling import count, recording, span
 
 # splats per block: the unit of the early exit and of nblk (Pallas BK)
 BK = 128
@@ -345,7 +345,8 @@ def composite_fwd(geom: torch.Tensor, feat: torch.Tensor,
     pairs, a (2,) int64 tensor on the card, gets the (pixel, slot) pairs
     the cluster instance walked and those of the batches it processed
     added to it (tiles over 16x16 or not in whole warps, CUDA tensors
-    only: the one-block instance and the plain version count none)."""
+    only: the one-block instance and the plain version count none);
+    `Composite` passes one while a profiler records."""
     _check_inputs(geom, feat, counts, dlim, cfg, has_dlim)
     cluster = _split_kernel(cfg.tile_size * cfg.tile_size)
     if skip not in (None, "none") and (skip not in _GRAINS or not cluster):
@@ -506,6 +507,7 @@ def composite_bwd(geom: torch.Tensor, feat: torch.Tensor,
     lib = _lib("composite_bwd")
     P = cfg.tile_size ** 2
     splits = bwd_splits(T, K, P, _sm_count(geom.device))
+    count("composite.bwd_splits", splits)
     # the split kernel's launch order, deepest tiles first (on the device:
     # the host never reads nblk)
     order = (torch.argsort(nblk, descending=True, stable=True).to(torch.int32)
@@ -607,11 +609,27 @@ def composite_bwd_plain(geom: torch.Tensor, feat: torch.Tensor,
     return dgeom, dfeat
 
 
+def _walk_counter(geom: torch.Tensor, cfg: RenderConfig):
+    """A zeroed (2,) int64 `pairs` counter for the forward's launch while
+    a profiler records and its tiles run as a cluster on the card (the
+    one-block instance and the plain version count nothing), else None:
+    off the recorder no tensor and no argument."""
+    if (not recording() or geom.device.type != "cuda"
+            or not _split_kernel(cfg.tile_size * cfg.tile_size)
+            or torch.cuda.is_current_stream_capturing()):
+        return None
+    return torch.zeros((2,), dtype=torch.int64, device=geom.device)
+
+
 class Composite(torch.autograd.Function):
     """`composite_fwd` with `composite_bwd` as its backward: (geom, feat)
     -> out (T,8,P), differentiable in geom and feat; counts and dlim get
     no gradient. The forward saves (geom, feat, counts, dlim,
-    log_t_final, nblk, log_t_groups) for the backward.
+    log_t_final, nblk, log_t_groups) for the backward. While a profiler
+    records (utils/profiling.py), a forward whose tiles run as a cluster
+    on the card counts its walk, the counters `fwd.pairs_walked` and
+    `fwd.pairs_processed`, and `composite_bwd` counts its blocks a tile,
+    `composite.bwd_splits`.
 
         out = Composite.apply(geom, feat, counts, dlim, tiles_x, cfg,
                               n_tiles_per_image, has_dlim)
@@ -622,8 +640,12 @@ class Composite(torch.autograd.Function):
                 n_tiles_per_image: int = 0, has_dlim: bool = True):
         kw = dict(tiles_x=tiles_x, cfg=cfg,
                   n_tiles_per_image=n_tiles_per_image, has_dlim=has_dlim)
+        pairs = _walk_counter(geom, cfg)
         out, log_t_final, nblk, log_t_groups = composite_fwd(
-            geom, feat, counts, dlim, **kw)
+            geom, feat, counts, dlim, **kw, pairs=pairs)
+        if pairs is not None:
+            count("fwd.pairs_walked", pairs[0])
+            count("fwd.pairs_processed", pairs[1])
         ctx.save_for_backward(geom, feat, counts, dlim, log_t_final, nblk,
                               log_t_groups)
         ctx.kw = kw
